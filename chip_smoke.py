@@ -1,0 +1,382 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``fastk_tpu_torch``) once on one CUDA card.
+
+    python3 chip_smoke.py
+
+Phases, one line each; any failure raises and the script exits non-zero:
+
+1. device: the card's name, and its name and power limit from nvidia-smi;
+2. build: compile the CUDA kernels from ``fastk_tpu_torch/csrc``;
+3. the run-length histogram kernel against its plain torch version on the
+   card, on crafted start masks and on random ones up to 2^26 positions;
+4. the histogram job on one batch of about 60 Mbp of 50X-HiFi-like reads
+   (2^26 positions), through the CLI, with the kernel's launch count,
+   exact instance accounting and a second computation that bins the same
+   sorted keys with the plain version;
+5. the job on about 200 Mbp in several batches, at two batch sizes that must
+   give byte-identical histograms, and on 1 Mbp against a numpy count;
+6. times on the card at 2^26 positions: the kernel, its plain version, the
+   key sort and canonical_kmers.
+
+Then one JSON line describing each kernel, and as the last line
+``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
+and prints no result. The inputs are made from fixed numpy seeds.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+
+K = 40
+READ_LEN = 20_000
+
+
+def pack_mask(mask: np.ndarray) -> np.ndarray:
+    """bool [n], n a multiple of 32 -> int32 [n/32], LSB-first."""
+    return np.packbits(mask, bitorder="little").view("<i4")
+
+
+def _mask_from_lengths(lengths, n: int):
+    mask = np.zeros(n, bool)
+    starts = np.cumsum([0] + list(lengths[:-1]))
+    mask[starts] = True
+    return pack_mask(mask), int(sum(lengths))
+
+
+def crafted_masks(seed: int = 0):
+    """(name, start words int32, valid_end) cases for the run-length kernel:
+    edge lengths, runs across word and block boundaries, invalid tails."""
+    rng = np.random.default_rng(seed)
+    S = 1 << 15
+    one_run = np.zeros(1 << 20, bool)
+    one_run[0] = True
+    cases = [
+        ("empty", pack_mask(np.zeros(S, bool)), 0),
+        ("singletons", pack_mask(np.ones(S, bool)), S),
+        ("one_run_2^20", pack_mask(one_run), 1 << 20),
+        ("no_start_bit_0", pack_mask(np.roll(one_run, 5)), 1 << 20),
+        ("exact_lengths", *_mask_from_lengths(
+            [2046, 2047, 32766, 32767, 32768, 1, 2, 3, 50], 1 << 18)),
+    ]
+    # runs that start and end on both sides of word (32 positions) and
+    # block-iteration (32768 positions) boundaries
+    lens = [31, 1, 32, 33, 32767 - 97, 2, 3, 32768 - 4, 64, 1]
+    lens += list(rng.integers(1, 100, 3000))
+    cases.append(("boundaries", *_mask_from_lengths(lens, 1 << 19)))
+    tail = rng.random(1 << 16) < 0.3
+    valid_end = (1 << 16) - 777
+    tail_clear = tail.copy()
+    tail_clear[valid_end:] = False
+    cases.append(("invalid_tail", pack_mask(tail_clear), valid_end))
+    cases.append(("tail_bits_ignored", pack_mask(tail), valid_end))
+    cases.append(("random_2^20", pack_mask(rng.random(1 << 20) < 0.3),
+                  1 << 20))
+    return cases
+
+
+def random_words(n_pos: int, seed: int = 1):
+    """A 2^26-scale random start mask: starts with probability 1/4, plus
+    gaps of 64000 positions (runs that clip at 32767) and an invalid tail."""
+    rng = np.random.default_rng(seed)
+    nw = n_pos // 32
+    words = (rng.integers(0, 1 << 32, nw, dtype=np.uint32)
+             & rng.integers(0, 1 << 32, nw, dtype=np.uint32))
+    for s in rng.integers(0, nw - 2000, 100):
+        words[s: s + 2000] = 0
+    valid_end = n_pos - 12345
+    words[valid_end // 32 + 1:] = 0
+    words[valid_end // 32] &= np.uint32((1 << (valid_end % 32)) - 1)
+    return words.view(np.int32), valid_end
+
+
+def write_hifi_fasta(path: str, genome_len: int, nreads: int, seed: int,
+                     err: float = 0.003) -> None:
+    """50X-HiFi-like reads: READ_LEN bases sampled from a random genome,
+    `err` substitutions, half reverse-complemented; one line per read."""
+    rng = np.random.default_rng(seed)
+    genome = rng.integers(0, 4, genome_len, dtype=np.uint8)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    with open(path, "wb") as f:
+        for lo in range(0, nreads, 500):
+            n = min(500, nreads - lo)
+            starts = rng.integers(0, genome_len - READ_LEN + 1, n)
+            reads = genome[starts[:, None] + np.arange(READ_LEN)]
+            bump = rng.integers(1, 4, (n, READ_LEN), dtype=np.uint8)
+            reads = np.where(rng.random((n, READ_LEN)) < err,
+                             (reads + bump) % 4, reads).astype(np.uint8)
+            flip = rng.random(n) < 0.5
+            reads[flip] = (3 - reads[flip])[:, ::-1]
+            for i in range(n):
+                f.write(b">r%d\n%s\n" % (lo + i, acgt[reads[i]].tobytes()))
+
+
+def brute_hist(codes: np.ndarray, k: int):
+    """Histogram of canonical k-mer counts by numpy alone (k <= 64): every
+    window without a code >= 4, forward and reverse complement packed into
+    two uint64 halves, np.unique."""
+    from numpy.lib.stride_tricks import sliding_window_view
+
+    from fastk_tpu.formats.hist import HIST_HIGH, Histogram
+
+    win = sliding_window_view(codes, k)
+    win = win[(win < 4).all(1)]
+
+    def pack(a):
+        out = np.zeros((len(a), 2), np.uint64)
+        for j in range(k):
+            h = j // 32
+            out[:, h] = (out[:, h] << np.uint64(2)) | a[:, j].astype(np.uint64)
+        return out
+
+    f = pack(win)
+    r = pack(3 - win[:, ::-1])
+    use_r = (r[:, 0] < f[:, 0]) | ((r[:, 0] == f[:, 0]) & (r[:, 1] < f[:, 1]))
+    canon = np.where(use_r[:, None], r, f)
+    _, counts = np.unique(canon, axis=0, return_counts=True)
+    over = int(np.maximum(counts - HIST_HIGH, 0).sum())
+    return Histogram.from_clipped_counts(k, np.minimum(counts, HIST_HIGH),
+                                         over)
+
+
+def _cuda_ms(fn, reps: int = 7, warmup: int = 2) -> float:
+    """Median milliseconds of fn() on the card, each run timed with CUDA
+    events after `warmup` untimed runs."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script "
+              "needs a CUDA card", file=sys.stderr)
+        return 1
+
+    from fastk_tpu import native
+    from fastk_tpu.formats.hist import (
+        HIST_HIGH,
+        Histogram,
+        read_histogram,
+        write_histogram,
+    )
+    from fastk_tpu.io.reader import batched_reads
+    from fastk_tpu_torch import _kernels
+    from fastk_tpu_torch.ops.count import fold_invalid, hist_batch, sort_keys
+    from fastk_tpu_torch.ops.histker import (
+        hist_device_part,
+        run_hist,
+        run_hist_ref,
+        start_words,
+    )
+    from fastk_tpu_torch.ops.kmers import canonical_kmers
+    from fastk_tpu_torch.ops.pack import (
+        device_codes,
+        pack_stream_words,
+        upload_packed,
+    )
+    from fastk_tpu_torch.pipeline.count import (
+        DEFAULT_BATCH_BASES,
+        _pad_codes,
+        _round_size,
+        count_files,
+    )
+    from fastk_tpu_torch.tools.fastk import main as fastk_main
+
+    dev = torch.device("cuda")
+
+    # phase 1: device
+    kind = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    print(f"phase 1 device: {kind}, {torch.cuda.device_count()} card(s), "
+          f"torch {torch.__version__}, CUDA {torch.version.cuda}, native "
+          f"host codecs {'loaded' if native.load() else 'absent'}", flush=True)
+    print(smi, flush=True)
+
+    # phase 2: build
+    t0 = time.perf_counter()
+    so = _kernels.build()
+    _kernels.load()
+    build_s = time.perf_counter() - t0
+    with open(so + ".log") as f:
+        ptxas = " ".join(ln.split("ptxas info    : ")[-1].strip()
+                         for ln in f if "Used" in ln)
+    print(f"phase 2 build: {build_s:.1f} s, {os.path.basename(so)}, "
+          f"ptxas: {ptxas or 'no report'}", flush=True)
+
+    # phase 3: kernel against its plain version, on the card
+    cases = crafted_masks()
+    cases.append(("random_2^26", *random_words(1 << 26)))
+    max_err = 0
+    names = []
+    for name, words_np, valid_end in cases:
+        words = torch.from_numpy(np.ascontiguousarray(words_np)).to(dev)
+        got, nv = run_hist(words, valid_end)
+        want, nv_ref = run_hist_ref(words, valid_end)
+        torch.cuda.synchronize()
+        err = int((got - want).abs().max())
+        max_err = max(max_err, err)
+        if err or nv != nv_ref:
+            raise AssertionError(f"run_hist differs from run_hist_ref on "
+                                 f"{name}: max abs err {err}")
+        names.append(name)
+    print(f"phase 3 kernel vs plain: {len(cases)} cases equal "
+          f"({', '.join(names)}), max abs err {max_err}", flush=True)
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        # phase 4: one batch of ~60 Mbp through the CLI
+        fasta = os.path.join(tmp, "single.fasta")
+        nreads = 3000
+        write_hifi_fasta(fasta, 1_200_000, nreads, seed=4)
+        run_hist.launches = 0
+        t0 = time.perf_counter()
+        rc = fastk_main(["-k40", f"-N{tmp}/s", fasta])
+        main_s = time.perf_counter() - t0
+        launches = run_hist.launches
+        if rc != 0 or launches < 1:
+            raise AssertionError(f"fastk main rc {rc}, run_hist launches "
+                                 f"{launches}")
+        hist = read_histogram(f"{tmp}/s")
+
+        t0 = time.perf_counter()
+        batches = [b for b, _ in batched_reads([fasta], 256 << 20)]
+        parse_s = time.perf_counter() - t0
+        if len(batches) != 1:
+            raise AssertionError(f"expected one batch, got {len(batches)}")
+        batch = batches[0]
+        size = _round_size(len(batch.codes), K)
+        codes = _pad_codes(batch, K, size)
+        pack_s, dev_s = [], []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pw, exc = pack_stream_words(codes)
+            t1 = time.perf_counter()
+            hist_batch(upload_packed(pw, exc, len(codes), dev), K,
+                       size)["hist"].cpu()
+            pack_s.append(t1 - t0)
+            dev_s.append(time.perf_counter() - t1)
+        pack_s, dev_s = statistics.median(pack_s), statistics.median(dev_s)
+        sw, valid_end = hist_device_part(device_codes(codes, dev), K, size)
+        ref_bins, _ = run_hist_ref(sw, valid_end)
+        ref_bins = ref_bins.cpu().numpy()
+        ref = Histogram.from_bins(K, ref_bins, valid_end - int(
+            (ref_bins[1:] * np.arange(1, HIST_HIGH + 1)).sum()))
+        want_inst = nreads * (READ_LEN - K + 1)
+        if hist != ref:
+            raise AssertionError("CLI .hist differs from the plain binning "
+                                 "of the same sorted keys")
+        if not hist.total_instances() == valid_end == want_inst:
+            raise AssertionError(
+                f"instances: hist {hist.total_instances()}, nvalid "
+                f"{valid_end}, expected {want_inst}")
+        print(f"phase 4 single batch: {batch.totlen} bases, size 2^"
+              f"{size.bit_length() - 1}, run_hist launches {launches}, CLI "
+              f"{main_s:.2f} s, parse {parse_s:.2f} s, host pack "
+              f"{pack_s * 1e3:.1f} ms + upload+count+fetch {dev_s * 1e3:.1f} "
+              f"ms = {batch.totlen / (pack_s + dev_s):.4g} bases/s, "
+              f"instances {want_inst} exact, equal to plain binning",
+              flush=True)
+
+        # phase 5: several batches; two batch sizes; numpy brute force
+        fasta5 = os.path.join(tmp, "multi.fasta")
+        nreads5 = 10_000
+        write_hifi_fasta(fasta5, 4_000_000, nreads5, seed=5)
+        nbatches = [sum(1 for _ in batched_reads([fasta5], bb))
+                     for bb in (DEFAULT_BATCH_BASES, 1 << 24)]
+        if nbatches[0] < 3:
+            raise AssertionError(f"expected >= 3 batches, got {nbatches[0]}")
+        t0 = time.perf_counter()
+        outs = [count_files([fasta5], K, device="cuda")]
+        multi_s = time.perf_counter() - t0
+        outs.append(count_files([fasta5], K, batch_bases=1 << 24,
+                                device="cuda"))
+        blobs = []
+        for i, out in enumerate(outs):
+            write_histogram(f"{tmp}/m{i}", out.hist)
+            with open(f"{tmp}/m{i}.hist", "rb") as f:
+                blobs.append(f.read())
+            want5 = nreads5 * (READ_LEN - K + 1)
+            if out.hist.total_instances() != want5:
+                raise AssertionError(f"multi-batch instances "
+                                     f"{out.hist.total_instances()} != "
+                                     f"{want5}")
+        if blobs[0] != blobs[1]:
+            raise AssertionError("multi-batch .hist differs between batch "
+                                 "sizes")
+        fasta1 = os.path.join(tmp, "one_mbp.fasta")
+        write_hifi_fasta(fasta1, 100_000, 50, seed=6)
+        codes1 = next(batched_reads([fasta1], 256 << 20))[0].codes
+        want1 = brute_hist(codes1, K)
+        for bb in (256 << 20, 1 << 18):
+            if count_files([fasta1], K, batch_bases=bb,
+                           device="cuda").hist != want1:
+                raise AssertionError(f"1 Mbp histogram (batch_bases {bb}) "
+                                     "differs from the numpy count")
+        print(f"phase 5 multi-batch: {outs[0].totlen} bases, "
+              f"{multi_s:.2f} s in {nbatches[0]} batches at the default "
+              f"batch size, .hist identical in {nbatches[1]} batches of "
+              f"2^24, instances {want5} exact; 1 Mbp equal "
+              "to numpy brute force (one batch and 4 batches)", flush=True)
+
+    # phase 6: times at 2^26 positions, on the phase-4 batch
+    codes_d = device_codes(codes, dev)
+    kernel_ms = _cuda_ms(lambda: run_hist(sw, valid_end))
+    plain_ms = _cuda_ms(lambda: run_hist_ref(sw, valid_end))
+    kmers_ms = _cuda_ms(lambda: canonical_kmers(codes_d, K, size))
+    words, invalid = canonical_kmers(codes_d, K, size)
+    folded = fold_invalid(words, invalid)
+    del words, invalid
+    sort_ms = _cuda_ms(lambda: sort_keys(folded))
+    s_words, _ = sort_keys(folded)
+    del folded
+    starts_ms = _cuda_ms(lambda: start_words(s_words, valid_end))
+    rnd_words, rnd_end = random_words(1 << 26)
+    rnd = torch.from_numpy(rnd_words).to(dev)
+    rnd_kernel_ms = _cuda_ms(lambda: run_hist(rnd, rnd_end))
+    rnd_plain_ms = _cuda_ms(lambda: run_hist_ref(rnd, rnd_end))
+    print(f"phase 6 times at 2^26 positions (median of 7, CUDA events): "
+          f"run_hist kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms "
+          f"(random mask: {rnd_kernel_ms:.4f} / {rnd_plain_ms:.4f} ms); "
+          f"sort_keys {sort_ms:.3f} ms; canonical_kmers {kmers_ms:.3f} ms; "
+          f"start_words {starts_ms:.3f} ms",
+          flush=True)
+
+    print(json.dumps({"kernels": [{
+        "name": "run_hist", "route": "cuda",
+        "source": "fastk_tpu_torch/csrc/run_hist.cu",
+        "replaces": "fastk_tpu/ops/histker.py:72",
+        "launches": launches, "max_abs_err": max_err,
+        "ms": kernel_ms, "plain_ms": plain_ms}]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,20 @@
+"""fastk_tpu_torch — the PyTorch and CUDA port of fastk_tpu.
+
+The port runs beside the JAX package, which stays the reference: on the same
+input it writes the same bytes. Host code that never imported JAX (the
+readers, the file formats, the native C scanner and packer, the CLI helpers)
+is shared from ``fastk_tpu`` unchanged; the device code is rewritten here in
+torch ops, and the package's Pallas kernel is a CUDA kernel written for
+Hopper (``csrc/``).
+
+Covered so far: the histogram job (``fastk -k<K>``, ``.hist`` only), single
+and multi batch — :func:`fastk_tpu_torch.pipeline.count.count_files` and
+``python -m fastk_tpu_torch.tools.fastk``.
+
+The device is explicit everywhere (default ``"cuda"``); asking for CUDA where
+there is none raises instead of running on the CPU.
+"""
+
+from fastk_tpu_torch.device import resolve_device
+
+__all__ = ["resolve_device"]

@@ -1,0 +1,102 @@
+"""Port's counting ops against fastk_tpu.ops.count (exact): hist_batch,
+unique_batch, merge_unique_blocks and the key sort."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+import fastk_tpu.ops.count as jcount
+from fastk_tpu.ops.kmers import canonical_kmers as jax_canonical
+from fastk_tpu_torch.convert import (
+    codes_from_numpy,
+    words_from_numpy,
+    words_to_numpy,
+)
+from fastk_tpu_torch.ops import count as tcount
+from fastk_tpu_torch.ops.kmers import canonical_kmers, pad_needed
+
+SIZE = 2048
+KS = [5, 17, 32, 33, 40, 64]
+
+
+def _codes(k: int, seed: int) -> np.ndarray:
+    """Reads sampled from a short genome, half reverse-complemented, so that
+    keys repeat: runs of many lengths, and an invalid tail."""
+    rng = np.random.default_rng(seed)
+    genome = rng.integers(0, 4, 400).astype(np.uint8)
+    parts = []
+    while sum(len(p) for p in parts) < SIZE:
+        s = int(rng.integers(0, 300))
+        r = genome[s: s + int(rng.integers(k, 100 + k))].copy()
+        if rng.random() < 0.5:
+            r = (3 - r)[::-1]
+        parts += [r, np.array([4], np.uint8)]
+    c = np.full(SIZE + pad_needed(k), 4, np.uint8)
+    body = np.concatenate(parts)[: SIZE - 50]
+    c[: len(body)] = body
+    return c
+
+
+@pytest.mark.parametrize("k", KS)
+def test_sort_keys_matches_lax_sort(k):
+    c = _codes(k, 1)
+    words, invalid = jax_canonical(jnp.asarray(c), k, SIZE)
+    folded = jcount.fold_invalid(words, invalid)
+    want = jax.lax.sort(folded, num_keys=len(folded))
+    tw, tinv = canonical_kmers(codes_from_numpy(c, "cpu"), k, SIZE)
+    got, _ = tcount.sort_keys(tcount.fold_invalid(tw, tinv))
+    for g, w in zip(words_to_numpy(got), want):
+        assert np.array_equal(g, np.asarray(w))
+    assert int(tcount.is_invalid_key(got).sum()) == int(np.asarray(
+        invalid).sum())
+
+
+@pytest.mark.parametrize("k", KS)
+def test_hist_batch_matches_jax(k):
+    c = _codes(k, 2)
+    want = jcount.hist_batch(jnp.asarray(c), k, SIZE)
+    got = tcount.hist_batch(codes_from_numpy(c, "cpu"), k, SIZE)
+    assert np.array_equal(got["hist"].numpy(),
+                          np.asarray(want["hist"]).astype(np.int64))
+    assert got["nvalid"] == int(want["nvalid"])
+    assert got["hist"][2:].sum() > 0  # the input does repeat keys
+
+
+def _unique_matches(got, want):
+    for key in ("nseg", "nuniq", "nvalid"):
+        assert int(got[key]) == int(want[key]), key
+    assert np.array_equal(got["seg_counts"].numpy(),
+                          np.asarray(want["seg_counts"]))
+    for g, w in zip(words_to_numpy(got["seg_words"]), want["seg_words"]):
+        assert np.array_equal(g, np.asarray(w))
+
+
+@pytest.mark.parametrize("k", KS)
+def test_unique_batch_and_merge_match_jax(k):
+    blocks = []
+    for seed in (3, 4):
+        c = _codes(k, seed)
+        want = jcount.unique_batch(jnp.asarray(c), k, SIZE)
+        got = tcount.unique_batch(codes_from_numpy(c, "cpu"), k, SIZE)
+        _unique_matches(got, want)
+        blocks.append(want)
+    # merge the JAX blocks in both packages
+    words = tuple(np.concatenate([np.asarray(b["seg_words"][j])
+                                  for b in blocks])
+                  for j in range(len(blocks[0]["seg_words"])))
+    counts = np.concatenate([np.asarray(b["seg_counts"]) for b in blocks])
+    want = jcount.merge_unique_blocks(
+        tuple(jnp.asarray(w) for w in words), jnp.asarray(counts),
+        2 * SIZE, k)
+    got = tcount.merge_unique_blocks(words_from_numpy(words, "cpu"),
+                                     torch.from_numpy(counts))
+    assert int(got["nuniq"]) == int(want["nuniq"])
+    assert np.array_equal(got["seg_counts"].numpy(),
+                          np.asarray(want["seg_counts"]))
+    for g, w in zip(words_to_numpy(got["seg_words"]), want["seg_words"]):
+        assert np.array_equal(g, np.asarray(w))
+    assert np.array_equal(got["hist"].numpy(),
+                          np.asarray(want["hist"]).astype(np.int64))

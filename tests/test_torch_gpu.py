@@ -1,0 +1,90 @@
+"""The port on a CUDA card: the run-length kernel against its plain
+version, and the device path on CUDA against the same path on the CPU.
+
+Imports no JAX, so that it runs on a machine with a card and without JAX:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
+
+Every test skips without a card.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+from fastk_tpu_torch.convert import codes_from_numpy, words_to_numpy
+from fastk_tpu_torch.ops import count, histker
+from fastk_tpu_torch.ops.kmers import pad_needed
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    return torch.device("cuda")
+
+
+def test_kernel_matches_plain(cuda_device):
+    cases = chip_smoke.crafted_masks()
+    cases.append(("random_2^26", *chip_smoke.random_words(1 << 26)))
+    for name, words, valid_end in cases:
+        t = torch.from_numpy(np.ascontiguousarray(words)).to(cuda_device)
+        before = histker.run_hist.launches
+        got, nvalid = histker.run_hist(t, valid_end)
+        assert histker.run_hist.launches == before + 1
+        want, _ = histker.run_hist_ref(t, valid_end)
+        torch.cuda.synchronize()
+        assert nvalid == valid_end
+        assert torch.equal(got, want), name
+
+
+def test_kernel_rejects_cpu_only_arguments(cuda_device):
+    t = torch.zeros(8, dtype=torch.int64, device=cuda_device)
+    with pytest.raises(ValueError):
+        histker.run_hist(t, 0)
+
+
+def _codes(k: int, size: int, seed: int) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    genome = rng.integers(0, 4, 5000).astype(np.uint8)
+    c = np.full(size + pad_needed(k), 4, np.uint8)
+    pos = 0
+    while pos < size - 300:
+        s = int(rng.integers(0, 4700))
+        r = genome[s: s + 300]
+        if rng.random() < 0.5:
+            r = (3 - r)[::-1]
+        c[pos: pos + 300] = r
+        pos += 301
+    c[rng.random(len(c)) < 0.001] = 4
+    return c
+
+
+@pytest.mark.parametrize("k", [17, 32, 40, 64])
+def test_device_path_matches_cpu(cuda_device, k):
+    size = 1 << 18
+    c = _codes(k, size, k)
+    cpu, gpu = torch.device("cpu"), cuda_device
+    h_cpu = count.hist_batch(codes_from_numpy(c, cpu), k, size)
+    before = histker.run_hist.launches
+    h_gpu = count.hist_batch(codes_from_numpy(c, gpu), k, size)
+    assert histker.run_hist.launches == before + 1
+    assert torch.equal(h_gpu["hist"].cpu(), h_cpu["hist"])
+    assert h_gpu["nvalid"] == h_cpu["nvalid"]
+
+    u_cpu = count.unique_batch(codes_from_numpy(c, cpu), k, size)
+    u_gpu = count.unique_batch(codes_from_numpy(c, gpu), k, size)
+    for key in ("nseg", "nuniq", "nvalid"):
+        assert int(u_gpu[key]) == int(u_cpu[key])
+    assert torch.equal(u_gpu["seg_counts"].cpu(), u_cpu["seg_counts"])
+    for g, w in zip(words_to_numpy(u_gpu["seg_words"]),
+                    words_to_numpy(u_cpu["seg_words"])):
+        assert np.array_equal(g, w)
+
+    m_cpu = count.merge_unique_blocks(u_cpu["seg_words"], u_cpu["seg_counts"])
+    m_gpu = count.merge_unique_blocks(u_gpu["seg_words"], u_gpu["seg_counts"])
+    assert int(m_gpu["nuniq"]) == int(m_cpu["nuniq"])
+    assert torch.equal(m_gpu["hist"].cpu(), m_cpu["hist"])
