@@ -16,7 +16,20 @@ Phases, one line each; any failure raises and the script exits non-zero:
 5. the job on about 200 Mbp in several batches, at two batch sizes that must
    give byte-identical histograms, and on 1 Mbp against a numpy count;
 6. times on the card at 2^26 positions: the kernel, its plain version, the
-   key sort and canonical_kmers.
+   key sort and canonical_kmers;
+7. the table-and-profile job (-t3 -p, and -t1 -p) on the phase-4 batch
+   through the CLI: the kernel's launches on the fused path, the .hist equal
+   to phase 4's, the -t1 counts summing to the instances, the -t3 table
+   equal to the -t1 entries >= 3, and the profile sum equal to the sum of
+   count^2;
+8. the same job in batches of 2^24 bases, with the instance streams kept on
+   the card and with none kept, byte-identical to phase 7; -p:<table>
+   against phase 7's -t1 table equal to its profiles; 200 Mbp with -t3 -p;
+   1 Mbp on the card and on the CPU byte-identical, its table equal to a
+   numpy count;
+9. times on the card at 2^26 positions of the -t -p stages: count_batch,
+   its key sort with positions and its position inverse, compact_table_min,
+   both joins, the host profile encode, and the whole -t3 -p batch.
 
 Then one JSON line describing each kernel, and as the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
@@ -118,13 +131,15 @@ def write_hifi_fasta(path: str, genome_len: int, nreads: int, seed: int,
                 f.write(b">r%d\n%s\n" % (lo + i, acgt[reads[i]].tobytes()))
 
 
-def brute_hist(codes: np.ndarray, k: int):
-    """Histogram of canonical k-mer counts by numpy alone (k <= 64): every
-    window without a code >= 4, forward and reverse complement packed into
-    two uint64 halves, np.unique."""
+def brute_count(codes: np.ndarray, k: int):
+    """(Histogram, KmerTable at -t1) of the canonical k-mers of a code
+    stream by numpy alone (k <= 64): every window without a code >= 4,
+    forward and reverse complement packed into two uint64 halves,
+    np.unique."""
     from numpy.lib.stride_tricks import sliding_window_view
 
     from fastk_tpu.formats.hist import HIST_HIGH, Histogram
+    from fastk_tpu.formats.ktab import KmerTable, pack_codes
 
     win = sliding_window_view(codes, k)
     win = win[(win < 4).all(1)]
@@ -140,10 +155,77 @@ def brute_hist(codes: np.ndarray, k: int):
     r = pack(3 - win[:, ::-1])
     use_r = (r[:, 0] < f[:, 0]) | ((r[:, 0] == f[:, 0]) & (r[:, 1] < f[:, 1]))
     canon = np.where(use_r[:, None], r, f)
-    _, counts = np.unique(canon, axis=0, return_counts=True)
+    keys, counts = np.unique(canon, axis=0, return_counts=True)
     over = int(np.maximum(counts - HIST_HIGH, 0).sum())
-    return Histogram.from_clipped_counts(k, np.minimum(counts, HIST_HIGH),
-                                         over)
+    clipped = np.minimum(counts, HIST_HIGH)
+    bases = np.zeros((len(keys), k), np.uint8)
+    for j in range(k):
+        h, nb = j // 32, min(32, k - 32 * (j // 32))
+        shift = np.uint64(2 * (nb - 1 - j % 32))
+        bases[:, j] = (keys[:, h] >> shift) & np.uint64(3)
+    return (Histogram.from_clipped_counts(k, clipped, over),
+            KmerTable(k, 1, pack_codes(bases), clipped))
+
+
+def file_set(d: str, base: str, exts=(".hist", ".ktab", ".prof", ".pidx")
+             ) -> dict:
+    """{name: bytes} of the file-sets of `base` in directory d with the
+    given extensions, hidden parts included, the base in each name replaced
+    by '@' so that two bases compare."""
+    out = {}
+    for name in sorted(os.listdir(d)):
+        stem = name[1:] if name.startswith(".") else name
+        if stem.startswith(base + ".") and any(
+                e in stem[len(base):] for e in exts):
+            with open(os.path.join(d, name), "rb") as f:
+                out[name.replace(base, "@", 1)] = f.read()
+    return out
+
+
+def profile_sums(path: str):
+    """(reads, positions, sum of counts) over a .prof file-set."""
+    from fastk_tpu.formats.prof import ProfileIndex
+
+    pi = ProfileIndex(path)
+    npos = total = 0
+    for i in range(pi.nreads):
+        p = pi.fetch(i)
+        npos += len(p)
+        total += int(p.sum(dtype=np.int64))
+    return pi.nreads, npos, total
+
+
+def sum_squares(hist) -> int:
+    """Sum over unique k-mers of count^2, from a histogram whose last bin
+    is empty (no count clipped)."""
+    if hist.counts[-1]:
+        raise AssertionError("a count reached 32767: sum of squares unknown")
+    f = np.arange(1, len(hist.counts) + 1, dtype=np.int64)
+    return int((hist.counts * f * f).sum())
+
+
+class JoinCounter:
+    """Count the pipeline's profile joins by branch: 'inst' (retained
+    instance streams) and 'packed' (the packed codes uploaded again)."""
+
+    def __init__(self):
+        from fastk_tpu_torch.pipeline import count as tpipe
+
+        self.n = {"inst": 0, "packed": 0}
+        for branch, name in (("inst", "profile_join_inst"),
+                             ("packed", "profile_join")):
+            setattr(tpipe, name, self._wrap(branch, getattr(tpipe, name)))
+
+    def _wrap(self, branch, fn):
+        def counted(*args):
+            self.n[branch] += 1
+            return fn(*args)
+
+        return counted
+
+    def take(self) -> dict:
+        got, self.n = self.n, {"inst": 0, "packed": 0}
+        return got
 
 
 def _cuda_ms(fn, reps: int = 7, warmup: int = 2) -> float:
@@ -165,6 +247,21 @@ def _cuda_ms(fn, reps: int = 7, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def _host_ms(fn, reps: int = 3) -> float:
+    """Median wall milliseconds of fn(), the card synchronised before and
+    after each run."""
+    import torch
+
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times) * 1e3
+
+
 def main() -> int:
     import torch
 
@@ -180,9 +277,23 @@ def main() -> int:
         read_histogram,
         write_histogram,
     )
+    from fastk_tpu.formats.ktab import read_ktab
+    from fastk_tpu.formats.prof import encode_profiles_bulk
     from fastk_tpu.io.reader import batched_reads
+    from fastk_tpu.tools.fastrm import remove_set
     from fastk_tpu_torch import _kernels
-    from fastk_tpu_torch.ops.count import fold_invalid, hist_batch, sort_keys
+    from fastk_tpu_torch.ops.count import (
+        compact_table_min,
+        count_batch,
+        fold_invalid,
+        hist_batch,
+        positions_inverse,
+        profile_join,
+        profile_join_inst,
+        segmented_count,
+        sort_keys,
+        unique_batch_inst,
+    )
     from fastk_tpu_torch.ops.histker import (
         hist_device_part,
         run_hist,
@@ -192,11 +303,16 @@ def main() -> int:
     from fastk_tpu_torch.ops.kmers import canonical_kmers
     from fastk_tpu_torch.ops.pack import (
         device_codes,
+        fetch_u16,
         pack_stream_words,
         upload_packed,
     )
     from fastk_tpu_torch.pipeline.count import (
         DEFAULT_BATCH_BASES,
+        _count_single_fused,
+        _device_table,
+        _ProfSink,
+        _table,
         _pad_codes,
         _round_size,
         count_files,
@@ -331,7 +447,7 @@ def main() -> int:
         fasta1 = os.path.join(tmp, "one_mbp.fasta")
         write_hifi_fasta(fasta1, 100_000, 50, seed=6)
         codes1 = next(batched_reads([fasta1], 256 << 20))[0].codes
-        want1 = brute_hist(codes1, K)
+        want1, table1 = brute_count(codes1, K)
         for bb in (256 << 20, 1 << 18):
             if count_files([fasta1], K, batch_bases=bb,
                            device="cuda").hist != want1:
@@ -343,34 +459,213 @@ def main() -> int:
               f"2^24, instances {want5} exact; 1 Mbp equal "
               "to numpy brute force (one batch and 4 batches)", flush=True)
 
-    # phase 6: times at 2^26 positions, on the phase-4 batch
-    codes_d = device_codes(codes, dev)
-    kernel_ms = _cuda_ms(lambda: run_hist(sw, valid_end))
-    plain_ms = _cuda_ms(lambda: run_hist_ref(sw, valid_end))
-    kmers_ms = _cuda_ms(lambda: canonical_kmers(codes_d, K, size))
-    words, invalid = canonical_kmers(codes_d, K, size)
-    folded = fold_invalid(words, invalid)
-    del words, invalid
-    sort_ms = _cuda_ms(lambda: sort_keys(folded))
-    s_words, _ = sort_keys(folded)
-    del folded
-    starts_ms = _cuda_ms(lambda: start_words(s_words, valid_end))
-    rnd_words, rnd_end = random_words(1 << 26)
-    rnd = torch.from_numpy(rnd_words).to(dev)
-    rnd_kernel_ms = _cuda_ms(lambda: run_hist(rnd, rnd_end))
-    rnd_plain_ms = _cuda_ms(lambda: run_hist_ref(rnd, rnd_end))
-    print(f"phase 6 times at 2^26 positions (median of 7, CUDA events): "
-          f"run_hist kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms "
-          f"(random mask: {rnd_kernel_ms:.4f} / {rnd_plain_ms:.4f} ms); "
-          f"sort_keys {sort_ms:.3f} ms; canonical_kmers {kmers_ms:.3f} ms; "
-          f"start_words {starts_ms:.3f} ms",
-          flush=True)
+        # phase 6: times at 2^26 positions, on the phase-4 batch
+        codes_d = device_codes(codes, dev)
+        kernel_ms = _cuda_ms(lambda: run_hist(sw, valid_end))
+        plain_ms = _cuda_ms(lambda: run_hist_ref(sw, valid_end))
+        kmers_ms = _cuda_ms(lambda: canonical_kmers(codes_d, K, size))
+        words, invalid = canonical_kmers(codes_d, K, size)
+        folded = fold_invalid(words, invalid)
+        del words, invalid
+        sort_ms = _cuda_ms(lambda: sort_keys(folded))
+        s_words, _ = sort_keys(folded)
+        del folded
+        starts_ms = _cuda_ms(lambda: start_words(s_words, valid_end))
+        rnd_words, rnd_end = random_words(1 << 26)
+        rnd = torch.from_numpy(rnd_words).to(dev)
+        rnd_kernel_ms = _cuda_ms(lambda: run_hist(rnd, rnd_end))
+        rnd_plain_ms = _cuda_ms(lambda: run_hist_ref(rnd, rnd_end))
+        print(f"phase 6 times at 2^26 positions (median of 7, CUDA events): "
+              f"run_hist kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms "
+              f"(random mask: {rnd_kernel_ms:.4f} / {rnd_plain_ms:.4f} ms); "
+              f"sort_keys {sort_ms:.3f} ms; canonical_kmers {kmers_ms:.3f} ms; "
+              f"start_words {starts_ms:.3f} ms",
+              flush=True)
+
+        # phase 7: the -t3 -p and -t1 -p jobs on the phase-4 batch, through
+        # the CLI (the fused single-batch path)
+        run_hist.launches = 0
+        t0 = time.perf_counter()
+        rc = fastk_main(["-k40", "-t3", "-p", f"-N{tmp}/p3", fasta])
+        cli7_s = time.perf_counter() - t0
+        launches7 = run_hist.launches
+        if rc != 0 or launches7 < 1:
+            raise AssertionError(f"fastk -t3 -p rc {rc}, run_hist launches "
+                                 f"{launches7}")
+        if fastk_main(["-k40", "-t1", "-p", f"-N{tmp}/p1", fasta]) != 0:
+            raise AssertionError("fastk -t1 -p failed")
+        for b in ("p3", "p1"):
+            if read_histogram(f"{tmp}/{b}") != hist:
+                raise AssertionError(f"{b}.hist differs from phase 4's")
+        t1, t3 = read_ktab(f"{tmp}/p1"), read_ktab(f"{tmp}/p3")
+        c1 = t1.counts.astype(np.int64)
+        if int(c1.sum()) != want_inst or int(c1.max()) >= HIST_HIGH:
+            raise AssertionError(f"-t1 counts sum {int(c1.sum())} != "
+                                 f"{want_inst} or a count clipped")
+        keep = t1.counts >= 3
+        if not (np.array_equal(t3.packed, t1.packed[keep])
+                and np.array_equal(t3.counts, t1.counts[keep])
+                and t3.minval == 3):
+            raise AssertionError("-t3 table is not the -t1 entries >= 3")
+        nprof, npos, psum = profile_sums(f"{tmp}/p1")
+        if (nprof, npos, psum) != (nreads, want_inst, int((c1 * c1).sum())):
+            raise AssertionError(
+                f"profiles: {nprof} reads, {npos} positions, sum {psum}; "
+                f"want {nreads}, {want_inst}, {int((c1 * c1).sum())}")
+        prof7 = file_set(tmp, "p1", (".prof", ".pidx"))
+        if file_set(tmp, "p3", (".prof", ".pidx")) != prof7:
+            raise AssertionError("-t3 -p and -t1 -p profiles differ")
+        print(f"phase 7 -t3 -p on one batch: CLI {cli7_s:.2f} s, run_hist "
+              f"launches {launches7}, .hist equal to phase 4, -t1 {len(t1)} "
+              f"entries summing to {want_inst} instances, -t3 {len(t3)} "
+              f"entries = the -t1 entries >= 3, profile sum {psum} = sum of "
+              "count^2", flush=True)
+
+        # phase 8: the same job in several batches (both profile-join
+        # branches), relative profiles, 200 Mbp, and cuda against cpu
+        joins = JoinCounter()
+        set7 = file_set(tmp, "p3")
+        os.environ["FASTK_TPU_BATCH_BASES"] = str(1 << 24)
+        try:
+            if fastk_main(["-k40", "-t3", "-p", f"-N{tmp}/b", fasta]) != 0:
+                raise AssertionError("fastk in batches of 2^24 failed")
+            inst_joins = joins.take()
+            os.environ["FASTK_TPU_INST_HBM"] = "0"
+            if fastk_main(["-k40", "-t3", "-p", f"-N{tmp}/z", fasta]) != 0:
+                raise AssertionError("fastk with no instance budget failed")
+            packed_joins = joins.take()
+        finally:
+            os.environ.pop("FASTK_TPU_BATCH_BASES", None)
+            os.environ.pop("FASTK_TPU_INST_HBM", None)
+        for b in ("b", "z"):
+            if file_set(tmp, b) != set7:
+                raise AssertionError(f"multi-batch run {b} differs from "
+                                     "phase 7's file-sets")
+            for ext in (".hist", ".ktab", ".prof"):
+                remove_set(f"{tmp}/{b}{ext}")
+        if (inst_joins["inst"] < 3 or inst_joins["packed"]
+                or packed_joins["packed"] != inst_joins["inst"]
+                or packed_joins["inst"]):
+            raise AssertionError(f"join branches: {inst_joins} with the "
+                                 f"default budget, {packed_joins} with 0")
+        if fastk_main(["-k40", f"-p:{tmp}/p1.ktab", f"-N{tmp}/rel",
+                       fasta]) != 0:
+            raise AssertionError("fastk -p:<table> failed")
+        if (file_set(tmp, "rel") != prof7
+                or os.path.exists(f"{tmp}/rel.hist")):
+            raise AssertionError("relative profiles against the -t1 table "
+                                 "differ from the -p profiles")
+        remove_set(f"{tmp}/rel.prof")
+        joins.take()
+        t0 = time.perf_counter()
+        out8 = count_files([fasta5], K, table_min=3, profiles=True,
+                           out_base=f"{tmp}/big", device="cuda")
+        big_s = time.perf_counter() - t0
+        big_joins = joins.take()
+        big_prof = profile_sums(f"{tmp}/big")
+        big_tab = read_ktab(f"{tmp}/big")
+        if (out8.hist.total_instances() != want5
+                or big_prof != (nreads5, want5, sum_squares(out8.hist))
+                or len(big_tab) != int(out8.hist.counts[2:].sum())
+                or read_histogram(f"{tmp}/m0") != out8.hist):
+            raise AssertionError(
+                f"200 Mbp -t3 -p: instances {out8.hist.total_instances()}, "
+                f"profiles {big_prof}, {len(big_tab)} table entries")
+        for ext in (".ktab", ".prof"):
+            remove_set(f"{tmp}/big{ext}")
+        for name, d in (("g", "cuda"), ("c", "cpu")):
+            if fastk_main(["-k40", "-t1", "-p", f"-N{tmp}/{name}", fasta1],
+                          device=d) != 0:
+                raise AssertionError(f"1 Mbp on {d} failed")
+        tab_g = read_ktab(f"{tmp}/g")
+        if (file_set(tmp, "g") != file_set(tmp, "c")
+                or not np.array_equal(tab_g.packed, table1.packed)
+                or not np.array_equal(tab_g.counts, table1.counts)):
+            raise AssertionError("1 Mbp: cuda and cpu file-sets differ, or "
+                                 "the table differs from the numpy count")
+        print(f"phase 8 multi-batch -t3 -p: 60 Mbp in batches of 2^24 "
+              f"byte-identical to phase 7 with instance streams kept "
+              f"({inst_joins}) and with none ({packed_joins}); -p:<-t1 "
+              f"table> profiles identical to -p; 200 Mbp {big_s:.2f} s "
+              f"({big_joins}), instances {want5}, profile sum = sum of "
+              f"count^2, {len(big_tab)} entries >= 3; 1 Mbp cuda file-sets "
+              f"= cpu, table = numpy count ({len(tab_g)} entries)",
+              flush=True)
+        del out8
+
+        # phase 9: times of the -t -p stages at 2^26 positions, on the
+        # phase-4 batch
+        del s_words, rnd, sw
+        cb_ms = _cuda_ms(lambda: count_batch(codes_d, K, size, True, True))
+        words, invalid = canonical_kmers(codes_d, K, size)
+        folded = fold_invalid(words, invalid)
+        del words, invalid
+        pos = torch.arange(size, dtype=torch.int32, device=dev)
+        sortpos_ms = _cuda_ms(lambda: sort_keys(folded, (pos,)))
+        s_words9, (s_pos9,) = sort_keys(folded, (pos,))
+        del folded, pos
+        elem = segmented_count(s_words9, want_elem_counts=True)[
+            "elem_counts"].to(torch.int16)
+        inverse_ms = _cuda_ms(lambda: positions_inverse(s_pos9, elem))
+        del s_words9, s_pos9, elem
+        res = count_batch(codes_d, K, size, True, True)
+        compact_ms = _cuda_ms(lambda: compact_table_min(
+            res["seg_words"], res["seg_counts"], 3))
+        t_words, t_counts = _device_table(t1, K, dev)
+        join_ms = _cuda_ms(lambda: profile_join(t_words, t_counts, codes_d,
+                                                K, size))
+        inst = unique_batch_inst(codes_d, K, size)
+        join_inst_ms = _cuda_ms(lambda: profile_join_inst(
+            t_words, t_counts, inst["s_words"], inst["s_pos"]))
+        for got in (profile_join(t_words, t_counts, codes_d, K, size),
+                    profile_join_inst(t_words, t_counts, inst["s_words"],
+                                      inst["s_pos"])):
+            if not torch.equal(got, res["pos_counts"]):
+                raise AssertionError("a join against the batch's own table "
+                                     "differs from count_batch's counts")
+        nuniq = int(res["nseg"]) - 1  # the batch has invalid positions
+        table_ms = _host_ms(lambda: _table(K, 3, res["seg_words"],
+                                           res["seg_counts"], nuniq,
+                                           f"{tmp}/x", 4))
+        fetch_ms = _host_ms(lambda: fetch_u16(res["pos_counts"]))
+        pos_np = fetch_u16(res["pos_counts"])
+        del res, inst, t_words, t_counts
+        plen = np.maximum(batch.rlen - K + 1, 0)
+        encode_ms = _host_ms(lambda: encode_profiles_bulk(
+            pos_np, batch.boff[:-1], plen), reps=5)
+
+        def write_prof():
+            sink = _ProfSink(K, f"{tmp}/x", 4, batch.nreads)
+            sink.add_batch(batch.boff, batch.rlen, pos_np)
+            sink.close()
+
+        prof_ms = _host_ms(write_prof)
+        upcount_ms = _host_ms(lambda: count_batch(
+            upload_packed(pw, exc, len(codes), dev), K, size, True, True))
+        whole_s = _host_ms(lambda: _count_single_fused(
+            batch, K, 3, False, f"{tmp}/w", 4, dev)) / 1e3
+        if file_set(tmp, "w", (".ktab", ".prof", ".pidx")) != {
+                n: b for n, b in set7.items() if ".hist" not in n}:
+            raise AssertionError("the timed -t3 -p batch wrote other files")
+        print(f"phase 9 -t3 -p times at 2^26 positions (median of 7, CUDA "
+              f"events): count_batch {cb_ms:.3f} ms, of which sort_keys "
+              f"with positions {sortpos_ms:.3f} ms and positions_inverse "
+              f"{inverse_ms:.3f} ms; compact_table_min {compact_ms:.3f} ms; "
+              f"profile_join {join_ms:.3f} ms, profile_join_inst "
+              f"{join_inst_ms:.3f} ms against the {len(t1)}-entry table; "
+              f"host profile encode {encode_ms:.1f} ms; the whole -t3 -p "
+              f"batch (pack, count, table, profiles, files; parse apart) "
+              f"{whole_s * 1e3:.1f} ms = {batch.totlen / whole_s:.4g} "
+              f"bases/s, of which (each timed alone) upload + count_batch "
+              f"{upcount_ms:.1f} ms, -t3 table fetch + .ktab write "
+              f"{table_ms:.1f} ms, profile fetch {fetch_ms:.1f} ms, profile "
+              f"encode + .prof write {prof_ms:.1f} ms", flush=True)
 
     print(json.dumps({"kernels": [{
         "name": "run_hist", "route": "cuda",
         "source": "fastk_tpu_torch/csrc/run_hist.cu",
         "replaces": "fastk_tpu/ops/histker.py:72",
-        "launches": launches, "max_abs_err": max_err,
+        "launches": launches + launches7, "max_abs_err": max_err,
         "ms": kernel_ms, "plain_ms": plain_ms}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

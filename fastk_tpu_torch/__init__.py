@@ -7,8 +7,9 @@ is shared from ``fastk_tpu`` unchanged; the device code is rewritten here in
 torch ops, and the package's Pallas kernel is a CUDA kernel written for
 Hopper (``csrc/``).
 
-Covered so far: the histogram job (``fastk -k<K>``, ``.hist`` only), single
-and multi batch — :func:`fastk_tpu_torch.pipeline.count.count_files` and
+Covered so far: the in-core counting job with its ``.hist``, ``.ktab``
+(``-t``) and ``.prof`` (``-p``, ``-p:<table>``) outputs, single and multi
+batch — :func:`fastk_tpu_torch.pipeline.count.count_files` and
 ``python -m fastk_tpu_torch.tools.fastk``.
 
 The device is explicit everywhere (default ``"cuda"``); asking for CUDA where

@@ -1,15 +1,20 @@
 """Device-side counting of canonical k-mers, in torch ops: key sort, segment
-reduction, per-batch uniques, their merge, and the histogram job.
+reduction, per-batch uniques and their merge, the histogram job, the fused
+single-batch count with per-position counts, the -t table compaction and
+the sort-merge join of positions against a table (profiles).
 
 Port of ``fastk_tpu/ops/count.py``. The JAX code avoids scatter and gather
-for their cost on the TPU; here scatter, gather and bincount are used freely
-and only the outputs match. Key words are int64 tensors holding 32-bit
+for their cost on the TPU; here scatter, gather, cumsum and bincount are used
+freely and only the outputs match. Key words are int64 tensors holding 32-bit
 values (see ops/kmers.py); the port does not narrow the last word, since a
-sort key here is a packed int64 whatever the word width.
+sort key here is a packed int64 whatever the word width. Clipped counts
+(at most 32767) that go back to the host ride as int16 (ops/pack.py
+fetch_u16).
 
 unique_batch and merge_unique_blocks do not wait for the device: their
 counts come back as device tensors, so the pipeline's host work on the next
-batch overlaps the device work.
+batch overlaps the device work. count_batch waits once, for the number of
+valid positions that the run-length kernel needs.
 """
 
 from __future__ import annotations
@@ -140,6 +145,25 @@ def hist_batch(codes: torch.Tensor, k: int, size: int):
     return dict(hist=hist, nvalid=nvalid)
 
 
+def _sorted_keys(codes: torch.Tensor, k: int, size: int, values=()):
+    """Canonical keys of a code stream, invalid windows folded to all-ones,
+    sorted and carrying `values`. Returns (s_words, s_values, ninv)."""
+    words, invalid = canonical_kmers(codes, k, size)
+    ninv = invalid.sum()
+    s_words, s_values = sort_keys(fold_invalid(words, invalid), values)
+    return s_words, s_values, ninv
+
+
+def _uniques(s_words, ninv: torch.Tensor, size: int):
+    seg = segment_reduce(s_words)
+    nuniq = seg["nseg"] - (ninv > 0).to(torch.int64)
+    real = torch.arange(size, device=ninv.device) < nuniq
+    return dict(
+        seg_words=tuple(torch.where(real, w, ONES) for w in seg["seg_words"]),
+        seg_counts=torch.where(real, seg["seg_counts"], 0),
+        nseg=seg["nseg"], nuniq=nuniq, nvalid=size - ninv)
+
+
 def unique_batch(codes: torch.Tensor, k: int, size: int):
     """Sorted unique canonical k-mers of one code stream, with counts.
 
@@ -147,17 +171,43 @@ def unique_batch(codes: torch.Tensor, k: int, size: int):
     all-ones beyond; seg_counts int32 [size]; nseg, nuniq and nvalid as int64
     scalar tensors — nseg includes a trailing invalid segment, nuniq does
     not)."""
-    words, invalid = canonical_kmers(codes, k, size)
-    ninv = invalid.sum()
-    s_words, _ = sort_keys(fold_invalid(words, invalid))
-    del words, invalid
-    seg = segment_reduce(s_words)
-    nuniq = seg["nseg"] - (ninv > 0).to(torch.int64)
-    real = torch.arange(size, device=codes.device) < nuniq
-    return dict(
-        seg_words=tuple(torch.where(real, w, ONES) for w in seg["seg_words"]),
-        seg_counts=torch.where(real, seg["seg_counts"], 0),
-        nseg=seg["nseg"], nuniq=nuniq, nvalid=size - ninv)
+    s_words, _, ninv = _sorted_keys(codes, k, size)
+    return _uniques(s_words, ninv, size)
+
+
+def unique_batch_inst(codes: torch.Tensor, k: int, size: int):
+    """unique_batch plus the sorted instance stream: the same key sort also
+    carries each record's position.
+
+    Extra keys: s_words (folded key words, ascending, the invalid all-ones
+    records last) and s_pos (int32 position of each sorted record). The
+    multi-batch profile pass joins this stream against the merged table
+    (profile_join_inst) with no re-upload and no canonical recompute."""
+    pos = torch.arange(size, dtype=torch.int32, device=codes.device)
+    s_words, (s_pos,), ninv = _sorted_keys(codes, k, size, (pos,))
+    out = _uniques(s_words, ninv, size)
+    out.update(s_words=s_words, s_pos=s_pos)
+    return out
+
+
+def compact_table_min(words, counts, tmin: int):
+    """Keep the entries with count >= tmin, in key order, counts clipped at
+    32767 (the -t<min> table, filtered before it crosses to the host).
+
+    words: tuple of int64 [n] sorted keys; counts int32 [n]. Returns
+    dict(words, counts — kept entries first, all-ones / 0 after them;
+    nkeep — int64 scalar tensor). Does not wait for the device."""
+    n = counts.numel()
+    keep = counts >= tmin
+    dest = torch.where(keep, torch.cumsum(keep, 0) - 1, n)  # n: dump slot
+    out_words = []
+    for w in words:
+        o = torch.full((n + 1,), ONES, dtype=w.dtype, device=w.device)
+        o[dest] = w
+        out_words.append(o[:n])
+    c = torch.zeros(n + 1, dtype=torch.int32, device=counts.device)
+    c[dest] = torch.clamp(counts, max=HIST_HIGH).to(torch.int32)
+    return dict(words=tuple(out_words), counts=c[:n], nkeep=keep.sum())
 
 
 def merge_unique_blocks(words, counts):
@@ -181,3 +231,144 @@ def merge_unique_blocks(words, counts):
     return dict(
         seg_words=tuple(torch.where(real, w, ONES) for w in seg["seg_words"]),
         seg_counts=seg_counts, nuniq=real.sum(), hist=hist)
+
+
+def fill_forward(markers: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
+    """out[i] = values[j] at the largest j <= i with markers[j] (-1 if none).
+
+    The marked values are scattered to one slot per marker and gathered back
+    by the running marker count: a cumsum, a scatter and a gather. (A
+    running max of marked indices, torch.cummax, took ~200 ms at 2^26 on an
+    H100, against under 1 ms for a cumsum.)"""
+    n = markers.numel()
+    seg = torch.cumsum(markers, 0) - 1  # the last marker at or before i
+    at = values.new_full((n + 1,), -1)
+    at[torch.where(markers, seg, n)] = values  # n: dump slot
+    return torch.where(seg >= 0, at[torch.clamp(seg, min=0)], -1)
+
+
+def next_start_after(starts: torch.Tensor) -> torch.Tensor:
+    """out[i] = the smallest start index strictly greater than i (size if
+    none): the start of the segment after i's, by a cumsum, a scatter and a
+    gather."""
+    size = starts.numel()
+    seg = torch.cumsum(starts, 0) - 1
+    first = torch.full((size + 2,), size, dtype=torch.int64,
+                       device=starts.device)
+    first[torch.where(starts, seg, size + 1)] = torch.arange(
+        size, device=starts.device)  # size + 1: dump slot
+    return first[seg + 1]
+
+
+def positions_inverse(pos: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
+    """`values` reordered to position order: out[pos[i]] = values[i] (pos
+    is a permutation of [0, n))."""
+    out = torch.empty_like(values)
+    out[pos.long()] = values
+    return out
+
+
+def segmented_count(s_words, want_elem_counts: bool = False,
+                    want_hist: bool = False):
+    """Segment statistics over sorted, invalid-folded key words.
+
+    Returns dict(seg_words, seg_counts — slot j = j-th segment in key order,
+    the trailing invalid segment included, all-ones / 0 beyond nseg;
+    seg_valid bool [size]; nseg int64 scalar tensor; overflow — instances
+    beyond 32767 in valid segments[, hist int64 [32768]][, elem_counts int32
+    [size] — each sorted record's segment count clipped at 32767, 0 for
+    invalid records]). The histogram is the run-length kernel over the
+    packed run starts (ops/histker.py run_hist), which waits once for the
+    number of valid records."""
+    size = s_words[0].numel()
+    seg = segment_reduce(s_words)
+    slot = torch.arange(size, device=s_words[0].device)
+    seg_valid = (slot < seg["nseg"]) & ~is_invalid_key(seg["seg_words"])
+    seg_counts = seg["seg_counts"]
+    overflow = torch.where(seg_valid & (seg_counts > HIST_HIGH),
+                           seg_counts - HIST_HIGH, 0).sum()
+    out = dict(seg_words=seg["seg_words"], seg_counts=seg_counts,
+               seg_valid=seg_valid, nseg=seg["nseg"], overflow=overflow)
+    rec_invalid = is_invalid_key(s_words)
+    if want_hist:
+        from fastk_tpu_torch.ops.histker import run_hist, start_words
+
+        valid_end = size - int(rec_invalid.sum())
+        out["hist"], _ = run_hist(start_words(s_words, valid_end), valid_end)
+    if want_elem_counts:
+        starts = run_starts(s_words)
+        start_len = torch.clamp(next_start_after(starts) - slot, max=HIST_HIGH)
+        elem = torch.clamp(fill_forward(starts, start_len), min=0)
+        out["elem_counts"] = torch.where(rec_invalid, 0, elem).to(torch.int32)
+    return out
+
+
+def count_batch(codes: torch.Tensor, k: int, size: int, want_positions: bool,
+                want_hist: bool = False):
+    """Count the canonical k-mers of one code stream: the fused single batch
+    of the -t -p jobs.
+
+    Returns segmented_count's dict plus nvalid (int64 scalar tensor) and,
+    with want_positions, pos_counts int16 [size] — the clipped count of the
+    k-mer that starts at each position, 0 at invalid positions."""
+    values = ((torch.arange(size, dtype=torch.int32, device=codes.device),)
+              if want_positions else ())
+    s_words, s_values, ninv = _sorted_keys(codes, k, size, values)
+    out = segmented_count(s_words, want_elem_counts=want_positions,
+                          want_hist=want_hist)
+    out["nvalid"] = size - ninv
+    if want_positions:
+        elem = out.pop("elem_counts").to(torch.int16)
+        out["pos_counts"] = positions_inverse(s_values[0], elem)
+    return out
+
+
+def _join_counts(table_words, table_counts, q_folded, q_pos=None):
+    """Sort-merge join: the clipped table count of each query key, 0 where
+    the key is absent or all-ones, as int16 [size] in position order.
+
+    Table entries and queries are sorted together by (words..., pos'), pos'
+    being 0 for a table entry and i+1 for the query at position i (q_pos[i]
+    when given: the instance stream arrives in key order). So a table entry
+    leads its key's segment and its count reaches the whole segment by
+    fill_forward, while a segment that starts with a query (an absent key)
+    gets 0. All-ones queries meet no table entry but the table's all-ones
+    empty slots, whose count is 0. pos' rides the sort as one more key
+    word, which for even W costs no extra sort pass. The scatter by pos'
+    then puts the counts in position order; slot 0 takes the table
+    entries' and is dropped."""
+    W = len(table_words)
+    A = table_counts.numel()
+    size = q_folded[0].numel()
+    dev = q_folded[0].device
+    qp = (torch.arange(size, device=dev) if q_pos is None
+          else q_pos.to(torch.int64))
+    pos = torch.cat([torch.zeros(A, dtype=torch.int64, device=dev), qp + 1])
+    merged = tuple(torch.cat([tw, qw]) for tw, qw in zip(table_words, q_folded))
+    cnt = torch.cat([torch.clamp(table_counts, max=HIST_HIGH).to(torch.int16),
+                     torch.zeros(size, dtype=torch.int16, device=dev)])
+    s_keys, (s_cnt,) = sort_keys(merged + (pos,), (cnt,))
+    del merged, pos, cnt
+    elem = torch.clamp(fill_forward(run_starts(s_keys[:W]), s_cnt), min=0)
+    out = torch.zeros(size + 1, dtype=torch.int16, device=dev)
+    out[s_keys[W]] = elem
+    return out[1:]
+
+
+def profile_join(table_words, table_counts, codes: torch.Tensor, k: int,
+                 size: int):
+    """Per-position clipped counts of a code stream against a sorted table
+    (see _join_counts); invalid positions get 0.
+
+    table_words: tuple of W int64 [A], sorted unique keys (all-ones at empty
+    slots); table_counts: int32 [A], 0 at empty slots."""
+    words, invalid = canonical_kmers(codes, k, size)
+    return _join_counts(table_words, table_counts,
+                        fold_invalid(words, invalid))
+
+
+def profile_join_inst(table_words, table_counts, s_words, s_pos):
+    """Join a batch's retained sorted instance stream (unique_batch_inst's
+    s_words and s_pos) against a sorted table: clipped int16 counts in
+    position order."""
+    return _join_counts(table_words, table_counts, s_words, q_pos=s_pos)

@@ -7,11 +7,14 @@ the ``.ktab`` packing. The canonical key is min(forward, reverse complement).
 
 Torch on the CPU has no unsigned 32-bit shifts, so each 32-bit word is carried
 as an int64 tensor holding a value in [0, 2^32). The 4-base groups are uint8,
-where every shift stays in range.
+where every shift stays in range. The host packing of words into .ktab
+bytes (``words_to_packed``, ``packed_to_words``) is numpy, as in the JAX
+module.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -90,3 +93,22 @@ def canonical_kmers(codes: torch.Tensor, k: int, size: int):
     words = tuple(torch.where(invalid, zero, torch.where(take_rc, r, f))
                   for f, r in zip(fwd, rc))
     return words, invalid
+
+
+def words_to_packed(words: np.ndarray, k: int) -> np.ndarray:
+    """Host: (n, W) uint32 canonical words -> (n, ceil(k/4)) uint8 .ktab
+    bytes."""
+    kb = (k + 3) // 4
+    if words.shape[0] == 0:
+        return np.zeros((0, kb), dtype=np.uint8)
+    be = np.ascontiguousarray(words.astype(">u4"))
+    return be.view(np.uint8).reshape(words.shape[0], -1)[:, :kb]
+
+
+def packed_to_words(packed: np.ndarray, k: int) -> np.ndarray:
+    """Host: (n, ceil(k/4)) uint8 .ktab bytes -> (n, W) uint32 words."""
+    n = packed.shape[0]
+    W = nwords(k)
+    buf = np.zeros((n, 4 * W), dtype=np.uint8)
+    buf[:, : packed.shape[1]] = packed
+    return buf.view(">u4").astype(np.uint32).reshape(n, W)

@@ -4,6 +4,10 @@ Port of ``fastk_tpu/ops/pack.py``. The host packs codes 4 bases a byte (code
 p at bits 2*(p%4) of byte p//4) and lists the positions of codes >= 4
 (sentinels, N's) apart; the device unpacks. The bytes are moved as int32
 words, little-endian, so code p sits at bits 2*(p%16) of word p//16.
+
+Count arrays come back through ``fetch_u16``: the device keeps them in a
+signed type (torch's uint16 kernels are thin) and the host views the int16
+bytes as uint16, which is exact for counts clipped at 32767.
 """
 
 from __future__ import annotations
@@ -100,3 +104,30 @@ def device_codes(codes: np.ndarray, device: torch.device) -> torch.Tensor:
     """Host codes -> device codes through the 2-bit packed transfer."""
     pw, exc = pack_stream_words(codes)
     return upload_packed(pw, exc, len(codes), device)
+
+
+def fetch_u16_async(x: torch.Tensor):
+    """Start moving a device count array (values in [0, 32767]) to the host.
+
+    Returns a callable that waits for this copy alone, not for device work
+    queued after it, and returns the counts as np.uint16. On CUDA the copy
+    goes as int16 into pinned memory without blocking the host."""
+    h = x.to(torch.int16)
+    if h.device.type != "cuda":
+        arr = h.numpy().view(np.uint16)
+        return lambda: arr
+    host = torch.empty(h.shape, dtype=torch.int16, pin_memory=True)
+    host.copy_(h, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+
+    def wait() -> np.ndarray:
+        done.synchronize()
+        return host.numpy().view(np.uint16)
+
+    return wait
+
+
+def fetch_u16(x: torch.Tensor) -> np.ndarray:
+    """Device count array (values in [0, 32767]) -> host np.uint16."""
+    return fetch_u16_async(x)()

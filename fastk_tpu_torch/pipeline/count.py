@@ -1,38 +1,68 @@
-"""The histogram job end to end: host ingest, device count, histogram.
+"""The in-core counting job end to end: host ingest, device count, and the
+.hist, .ktab and .prof outputs.
 
-Port of the histogram-only branches of ``fastk_tpu/pipeline/count.py``:
+Port of ``fastk_tpu/pipeline/count.py``:
 
-- one batch of at most MAX_DEVICE_POSITIONS positions: ``hist_batch`` (keys,
-  sort, run starts, the run-length kernel) and nothing else;
-- more: ``unique_batch`` on every device slice, the compacted blocks kept on
-  the device, then one ``merge_unique_blocks`` whose histogram is the job's.
+- one batch of at most MAX_DEVICE_POSITIONS positions, histogram only:
+  ``hist_batch`` (keys, sort, run starts, the run-length kernel);
+- one such batch with profiles (``-p``, with or without ``-t``):
+  ``count_batch``, whose one sort gives the histogram (the run-length
+  kernel again), the table and the per-position counts;
+- anything else: ``unique_batch`` on every device slice, the compacted blocks
+  kept on the device, then one ``merge_unique_blocks`` whose histogram is
+  the job's and whose uniques are the table (``compact_table_min`` for
+  ``-t`` above 1). Profiles then join every position against the merged
+  table: from the sorted instance stream kept on the device while it fits
+  the ``FASTK_TPU_INST_HBM`` budget (``unique_batch_inst``,
+  ``profile_join_inst``), else by uploading the batch's packed codes again
+  (``profile_join``);
+- ``-p:<table>`` (relative_table): no counting pass, only the join.
 
-Host reading and packing (``fastk_tpu.io.reader``, the native packer) are
-shared with the JAX package. Batch i+1's parse, pack and upload overlap
-batch i's device work: the only waits are for batch i's two counts.
+Host reading, packing and the file formats (``fastk_tpu.io.reader``,
+``fastk_tpu.formats``, the native packer and profile encoder) are shared
+with the JAX package. Batch i+1's parse, pack and upload overlap batch i's
+device work, and in the profile pass batch i+1's join overlaps batch i's
+fetch and encode: the only waits are for one batch's counts.
 """
 
 from __future__ import annotations
 
 import itertools
+import os
+import tempfile
 from dataclasses import dataclass
-from typing import Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from fastk_tpu.formats.hist import HIST_HIGH, Histogram
+from fastk_tpu.formats.ktab import KmerTable, write_ktab
+from fastk_tpu.formats.prof import ProfWriter, encode_profiles_bulk
 from fastk_tpu.io.reader import ReadBatch, batched_reads
+from fastk_tpu_torch.convert import words_to_numpy
 from fastk_tpu_torch.device import resolve_device
 from fastk_tpu_torch.ops.count import (
     ONES,
+    compact_table_min,
+    count_batch,
     hist_batch,
     merge_unique_blocks,
+    profile_join,
+    profile_join_inst,
     unique_batch,
+    unique_batch_inst,
 )
-from fastk_tpu_torch.ops.kmers import nwords, pad_needed
+from fastk_tpu_torch.ops.kmers import (
+    nwords,
+    packed_to_words,
+    pad_needed,
+    words_to_packed,
+)
 from fastk_tpu_torch.ops.pack import (
     device_codes,
+    fetch_u16,
+    fetch_u16_async,
     pack_stream_words,
     upload_packed,
 )
@@ -42,6 +72,8 @@ _MIN_SIZE = 1 << 15
 # positions per device call: a longer batch (or read) is counted in slices of
 # this many k-mer start positions, each carrying the k-1 halo after it
 MAX_DEVICE_POSITIONS = 1 << 26
+# device bytes of retained sorted instance streams, over all batches
+DEFAULT_INST_HBM = 4 << 30
 
 
 def _round_size(n: int, k: int) -> int:
@@ -81,7 +113,8 @@ def _code_slices(codes: np.ndarray, k: int):
 
 def _packed_slices(codes: np.ndarray, k: int):
     """_code_slices, packed for transfer: yields (off, size, words,
-    exceptions, slice length)."""
+    exceptions, slice length). The packed form is what the profile pass
+    keeps of a batch whose instance stream is not on the device."""
     for off, size, buf in _code_slices(codes, k):
         pw, exc = pack_stream_words(buf)
         yield off, size, pw, exc, len(buf)
@@ -92,27 +125,33 @@ def _trim(n: int) -> int:
     return max(_MIN_SIZE, -(-n // _MIN_SIZE) * _MIN_SIZE)
 
 
+def _inst_bytes(size: int, k: int) -> int:
+    """Device bytes of unique_batch_inst's s_words and s_pos for one slice:
+    W int64 words and one int32 position per record."""
+    return size * (8 * nwords(k) + 4)
+
+
 @dataclass
 class CountOutput:
     kmer: int
-    hist: Histogram
+    hist: Optional[Histogram]
+    table: Optional[KmerTable]
+    profiles: Optional[List[np.ndarray]]
     nreads: int
     totlen: int
+    # set when the table was streamed to disk (table above is then None):
+    # the number of entries written
+    table_entries: Optional[int] = None
     nshort: int = 0  # reads shorter than k, which hold no k-mer
 
 
-def _output(k: int, hist_bins: torch.Tensor, nvalid: int, rlens
-            ) -> CountOutput:
-    """The job's result; the instances lost to clipping at 32767 are
+def _histogram(k: int, hist_bins: torch.Tensor, nvalid: int) -> Histogram:
+    """The job's histogram; the instances lost to clipping at 32767 are
     nvalid - sum(c * hist[c])."""
     bins = hist_bins.cpu().numpy().astype(np.int64)
     overflow = nvalid - int(
         (bins[1:] * np.arange(1, HIST_HIGH + 1, dtype=np.int64)).sum())
-    return CountOutput(
-        k, Histogram.from_bins(k, bins, overflow),
-        nreads=sum(len(r) for r in rlens),
-        totlen=sum(int(r.sum()) for r in rlens),
-        nshort=sum(int((r < k).sum()) for r in rlens))
+    return Histogram.from_bins(k, bins, overflow)
 
 
 def _later(t: torch.Tensor):
@@ -131,37 +170,126 @@ def _later(t: torch.Tensor):
     return wait
 
 
+def _profiles_from_meta(boff: np.ndarray, rlen: np.ndarray,
+                        pos_counts: np.ndarray, k: int) -> List[np.ndarray]:
+    profs = []
+    for r in range(len(rlen)):
+        o = int(boff[r])
+        n = int(rlen[r]) - k + 1
+        if n <= 0:
+            profs.append(np.zeros(0, dtype=np.uint16))
+        else:
+            profs.append(pos_counts[o: o + n].astype(np.uint16))
+    return profs
+
+
+def _device_table(table: KmerTable, k: int, dev: torch.device):
+    """Host table -> device (words tuple of int64 [n], counts int32 [n]
+    clipped at 32767). The join needs no padding: torch has no static
+    shapes to keep."""
+    words = packed_to_words(table.packed, k)
+    counts = np.minimum(table.counts, HIST_HIGH).astype(np.int32)
+    return (tuple(torch.from_numpy(words[:, j].astype(np.int64)).to(dev)
+                  for j in range(words.shape[1])),
+            torch.from_numpy(counts).to(dev))
+
+
+def _table(k: int, table_min: int, words, counts: torch.Tensor, n: int,
+           out_base: Optional[str], out_nparts: int):
+    """The -t<table_min> table of the first n sorted unique keys and counts
+    on the device: (in-memory KmerTable, or None when the .ktab was written
+    to out_base; number of entries). Above -t1 the entries are filtered on
+    the device (compact_table_min), so only the kept ones cross to the
+    host: at -t3 most uniques are the error tail."""
+    words, counts = tuple(w[:n] for w in words), counts[:n]
+    if table_min > 1:
+        kept = compact_table_min(words, counts, table_min)
+        n = int(kept["nkeep"])
+        words, counts = kept["words"], kept["counts"]
+    u_words = np.stack(words_to_numpy(w[:n] for w in words), axis=1)
+    u_counts = fetch_u16(torch.clamp(counts[:n], max=HIST_HIGH))
+    tab = KmerTable(k, table_min, words_to_packed(u_words, k), u_counts)
+    if out_base is None:
+        return tab, len(tab)
+    write_ktab(out_base, tab, nparts=out_nparts)
+    return None, len(tab)
+
+
+class _ProfSink:
+    """Where finished per-batch position counts go: a streaming ProfWriter
+    (out_base set: bounded memory) or an in-memory list of count arrays."""
+
+    def __init__(self, k: int, out_base: Optional[str], out_nparts: int,
+                 nreads: int):
+        self.k = k
+        self.profs: Optional[List[np.ndarray]] = None
+        self._pw = None
+        if out_base is not None:
+            self._pw = ProfWriter(out_base, k, nreads,
+                                  nparts=min(out_nparts, max(1, nreads)))
+        else:
+            self.profs = []
+
+    def add_batch(self, boff: np.ndarray, rlen: np.ndarray,
+                  pos_counts: np.ndarray) -> None:
+        if self._pw is not None:
+            plen = np.maximum(np.asarray(rlen) - self.k + 1, 0)
+            blob, offs = encode_profiles_bulk(
+                pos_counts.astype(np.uint16, copy=False),
+                np.asarray(boff[:-1]), plen)
+            self._pw.add_block(blob, offs)
+        else:
+            self.profs.extend(
+                _profiles_from_meta(boff, rlen, pos_counts, self.k))
+
+    def close(self) -> None:
+        if self._pw is not None:
+            self._pw.close()
+
+
 def count_files(
     paths: Sequence[str],
     k: int,
+    table_min: Optional[int] = None,
+    profiles: bool = False,
     hc: bool = False,
     bc: int = 0,
     batch_bases: int = DEFAULT_BATCH_BASES,
+    relative_table: Optional[KmerTable] = None,
     verbose: bool = False,
+    out_base: Optional[str] = None,
+    out_nparts: int = 4,
     device="cuda",
-    table_min=None,
-    profiles: bool = False,
-    relative_table=None,
 ) -> CountOutput:
-    """Count the canonical k-mers of the given sequence files into a
-    histogram, on `device`.
+    """Count the canonical k-mers of the given sequence files on `device`.
 
-    hc: homopolymer-compress reads; bc: drop this many leading bases of each
-    read. table_min, profiles and relative_table (``.ktab`` and ``.prof``
-    output) are not ported yet and raise NotImplementedError."""
-    if table_min is not None or profiles or relative_table is not None:
-        raise NotImplementedError("not yet ported: table_min, profiles and "
-                                  "relative_table")
+    table_min: build the table of k-mers seen at least this often (-t).
+    profiles: per-read count profiles (-p). relative_table: take profiles
+    against this table instead of the input's own counts (-p:<table>); no
+    counting pass runs. hc: homopolymer-compress reads; bc: drop this many
+    leading bases of each read.
+
+    out_base: stream the .ktab and .prof file-sets to disk (out_nparts parts
+    each) instead of returning them (table and profiles come back None,
+    table_entries set). The histogram is always returned, never written."""
     dev = resolve_device(device)
-
     gen = batched_reads(list(paths), batch_bases, hc=hc, bc=bc)
     first_two = [batch for batch, _ordinal in itertools.islice(gen, 2)]
-    if (len(first_two) == 1
-            and len(first_two[0].codes) + pad_needed(k)
-            <= MAX_DEVICE_POSITIONS):
+    single = (len(first_two) == 1
+              and len(first_two[0].codes) + pad_needed(k)
+              <= MAX_DEVICE_POSITIONS)
+    if single and profiles and relative_table is None:
+        return _count_single_fused(first_two[0], k, table_min, verbose,
+                                   out_base, out_nparts, dev)
+    if (single and not profiles and table_min is None
+            and relative_table is None):
         return _count_single_hist(first_two[0], k, verbose, dev)
 
-    rlens = []
+    metas = []  # per batch: (boff, rlen, number of codes)
+    packed_store = []  # per batch: its packed slices, kept for profiles
+    inst_store = []  # per batch: (off, size, s_words, s_pos) on the device
+    inst_budget = int(os.environ.get("FASTK_TPU_INST_HBM", DEFAULT_INST_HBM))
+    inst_bytes = 0
     blocks_words, blocks_counts = [], []
     nvalid_total = 0
     pending = None
@@ -176,21 +304,58 @@ def count_files(
 
     batches = itertools.chain(first_two, (b for b, _ordinal in gen))
     for batch in batches:
-        rlens.append(np.asarray(batch.rlen))
-        for _off, size, pw, exc, blen in _packed_slices(batch.codes, k):
-            res = unique_batch(upload_packed(pw, exc, blen, dev), k, size)
+        metas.append((np.asarray(batch.boff), np.asarray(batch.rlen),
+                      len(batch.codes)))
+        if profiles:
+            packed_store.append([])
+            inst_store.append([])
+        for off, size, pw, exc, blen in _packed_slices(batch.codes, k):
+            if profiles:
+                packed_store[-1].append((off, size, pw, exc, blen))
+            if relative_table is not None:
+                continue
+            codes = upload_packed(pw, exc, blen, dev)
+            if profiles and inst_bytes + _inst_bytes(size, k) <= inst_budget:
+                res = unique_batch_inst(codes, k, size)
+                inst_store[-1].append(
+                    (off, size, res.pop("s_words"), res.pop("s_pos")))
+                inst_bytes += _inst_bytes(size, k)
+            else:
+                res = unique_batch(codes, k, size)
+            del codes
             fetches = (_later(res["nuniq"]), _later(res["nvalid"]))
             if pending is not None:
                 _finalize(*pending)
             pending = (res, *fetches, size)
             del res
+        if (profiles and inst_store[-1]
+                and len(inst_store[-1]) == len(packed_store[-1])):
+            # every slice of this batch has its instance stream on the
+            # device: drop the packed bytes, keep the slice geometry
+            packed_store[-1] = [(off, size, None, None, blen)
+                                for off, size, _pw, _exc, blen
+                                in packed_store[-1]]
         if verbose:
-            print(f"  batch {len(rlens)}: {len(rlens[-1])} reads, "
-                  f"{int(rlens[-1].sum())} bases", flush=True)
+            print(f"  batch {len(metas)}: {len(metas[-1][1])} reads, "
+                  f"{int(metas[-1][1].sum())} bases", flush=True)
         del batch
     if pending is not None:
         _finalize(*pending)
         pending = None
+
+    rlens = [m[1] for m in metas]
+    nreads = sum(len(r) for r in rlens)
+    totlen = sum(int(r.sum()) for r in rlens)
+    nshort = sum(int((r < k).sum()) for r in rlens)
+
+    if relative_table is not None:
+        t_words, t_counts = _device_table(relative_table, k, dev)
+        sink = _ProfSink(k, out_base, out_nparts, nreads)
+        _join_profiles_packed(metas, packed_store, k, t_words, t_counts,
+                              sink, dev)
+        sink.close()
+        return CountOutput(k, None, None, sink.profs, nreads, totlen,
+                           nshort=nshort)
 
     # one empty slot, so that an input without reads still merges
     m_words = tuple(
@@ -201,7 +366,28 @@ def count_files(
         blocks_counts + [torch.zeros(1, dtype=torch.int32, device=dev)])
     del blocks_words, blocks_counts
     merged = merge_unique_blocks(m_words, m_counts)
-    return _output(k, merged["hist"], nvalid_total, rlens)
+    del m_words, m_counts
+    hist = _histogram(k, merged["hist"], nvalid_total)
+
+    table = table_entries = None
+    if table_min is not None:
+        table, table_entries = _table(
+            k, table_min, merged["seg_words"], merged["seg_counts"],
+            int(merged["nuniq"]), out_base, out_nparts)
+
+    profs = None
+    if profiles:
+        # join against the merged table on the device
+        nuniq = int(merged["nuniq"])
+        t_words = tuple(w[:nuniq] for w in merged["seg_words"])
+        t_counts = torch.clamp(merged["seg_counts"][:nuniq], max=HIST_HIGH)
+        sink = _ProfSink(k, out_base, out_nparts, nreads)
+        _join_profiles_any(metas, inst_store, packed_store, k, t_words,
+                           t_counts, sink, dev)
+        sink.close()
+        profs = sink.profs
+    return CountOutput(k, hist, table, profs, nreads, totlen,
+                       table_entries=table_entries, nshort=nshort)
 
 
 def _count_single_hist(batch: ReadBatch, k: int, verbose: bool,
@@ -213,4 +399,110 @@ def _count_single_hist(batch: ReadBatch, k: int, verbose: bool,
     if verbose:
         print(f"  batch 1 (hist-only): {batch.nreads} reads, "
               f"{batch.totlen} bases", flush=True)
-    return _output(k, res["hist"], res["nvalid"], [np.asarray(batch.rlen)])
+    rlen = np.asarray(batch.rlen)
+    return CountOutput(k, _histogram(k, res["hist"], res["nvalid"]), None,
+                       None, batch.nreads, batch.totlen,
+                       nshort=int((rlen < k).sum()))
+
+
+def _count_single_fused(batch: ReadBatch, k: int, table_min: Optional[int],
+                        verbose: bool, out_base: Optional[str],
+                        out_nparts: int, dev: torch.device) -> CountOutput:
+    """Single-batch -p jobs (with or without -t): one count_batch gives the
+    histogram, the unique table and the per-position counts."""
+    size = _round_size(len(batch.codes), k)
+    res = count_batch(device_codes(_pad_codes(batch, k, size), dev), k, size,
+                      True, True)
+    pos_fetch = fetch_u16_async(res["pos_counts"])
+    if verbose:
+        print(f"  batch 1 (fused): {batch.nreads} reads, "
+              f"{batch.totlen} bases", flush=True)
+    nvalid = int(res["nvalid"])
+    hist = _histogram(k, res["hist"], nvalid)
+
+    table = table_entries = None
+    if table_min is not None:
+        # valid segments are the slots before the one trailing invalid one
+        nuniq = int(res["nseg"]) - (1 if nvalid < size else 0)
+        table, table_entries = _table(k, table_min, res["seg_words"],
+                                      res["seg_counts"], nuniq, out_base,
+                                      out_nparts)
+    sink = _ProfSink(k, out_base, out_nparts, batch.nreads)
+    sink.add_batch(batch.boff, batch.rlen, pos_fetch())
+    sink.close()
+    rlen = np.asarray(batch.rlen)
+    return CountOutput(k, hist, table, sink.profs, batch.nreads,
+                       batch.totlen, table_entries=table_entries,
+                       nshort=int((rlen < k).sum()))
+
+
+def _drain(metas, joins, sink: _ProfSink) -> None:
+    """Assemble each batch's per-position counts from its slices' join
+    results and hand them to the sink, one batch behind the joins: batch
+    i+1's joins are queued on the device before batch i's counts are waited
+    for. joins yields, per batch, a list of (off, size, int16 counts)."""
+    pending = None
+
+    def _emit(meta, fetches):
+        boff, rlen, clen = meta
+        pos_counts = np.zeros(clen, dtype=np.uint16)
+        for off, size, fetch in fetches:
+            take = min(size, clen - off)
+            if take > 0:
+                pos_counts[off: off + take] = fetch()[:take]
+        sink.add_batch(boff, rlen, pos_counts)
+
+    for meta, slices in zip(metas, joins):
+        fetches = [(off, size, fetch_u16_async(pc))
+                   for off, size, pc in slices]
+        if pending is not None:
+            _emit(*pending)
+        pending = (meta, fetches)
+    if pending is not None:
+        _emit(*pending)
+
+
+def _packed_joins(pslices, k, t_words, t_counts, dev):
+    return [(off, size, profile_join(t_words, t_counts,
+                                     upload_packed(pw, exc, blen, dev), k,
+                                     size))
+            for off, size, pw, exc, blen in pslices]
+
+
+def _join_profiles_any(metas, inst_store, packed_store, k, t_words,
+                       t_counts, sink: _ProfSink, dev) -> None:
+    """The profile pass: a batch whose sorted instance streams are all on
+    the device joins them (profile_join_inst: no upload, no canonical keys,
+    position order straight off the join); any other batch uploads its
+    packed slices again (profile_join)."""
+    def joins():
+        for i, pslices in enumerate(packed_store):
+            islices = inst_store[i]
+            inst_store[i] = []  # free each stream once it is joined
+            if islices and len(islices) == len(pslices):
+                yield [(off, size, profile_join_inst(t_words, t_counts,
+                                                     s_words, s_pos))
+                       for off, size, s_words, s_pos in islices]
+            else:
+                del islices
+                yield _packed_joins(pslices, k, t_words, t_counts, dev)
+
+    _drain(metas, joins(), sink)
+
+
+def _join_profiles_packed(metas, packed_store, k, t_words, t_counts,
+                          sink: _ProfSink, dev) -> None:
+    """The profile pass from the packed slices alone (relative profiles)."""
+    _drain(metas, (_packed_joins(pslices, k, t_words, t_counts, dev)
+                   for pslices in packed_store), sink)
+
+
+def count_reads(reads: List[bytes], k: int, **kw) -> CountOutput:
+    """Count an in-memory list of raw reads (written to a temporary FASTA)."""
+    with tempfile.TemporaryDirectory() as d:
+        p = os.path.join(d, "in.fasta")
+        with open(p, "w") as f:
+            for i, r in enumerate(reads):
+                s = r.decode() if isinstance(r, (bytes, bytearray)) else r
+                f.write(f">r{i}\n{s}\n")
+        return count_files([p], k, **kw)

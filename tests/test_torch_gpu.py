@@ -1,5 +1,7 @@
 """The port on a CUDA card: the run-length kernel against its plain
-version, and the device path on CUDA against the same path on the CPU.
+version, and the device paths (histogram, uniques, the fused count, the
+table compaction and the profile joins) on CUDA against the same calls on
+the CPU.
 
 Imports no JAX, so that it runs on a machine with a card and without JAX:
 
@@ -88,3 +90,45 @@ def test_device_path_matches_cpu(cuda_device, k):
     m_gpu = count.merge_unique_blocks(u_gpu["seg_words"], u_gpu["seg_counts"])
     assert int(m_gpu["nuniq"]) == int(m_cpu["nuniq"])
     assert torch.equal(m_gpu["hist"].cpu(), m_cpu["hist"])
+
+
+@pytest.mark.parametrize("k", [17, 40])
+def test_table_and_profile_ops_match_cpu(cuda_device, k):
+    """count_batch, compact_table_min and both joins on the card equal the
+    same calls on the CPU; count_batch launches run_hist once."""
+    size = 1 << 18
+    c = _codes(k, size, k + 1)
+    res = {}
+    for dev in (torch.device("cpu"), cuda_device):
+        before = histker.run_hist.launches
+        cb = count.count_batch(codes_from_numpy(c, dev), k, size, True, True)
+        if dev.type == "cuda":
+            assert histker.run_hist.launches == before + 1
+        kept = count.compact_table_min(cb["seg_words"], cb["seg_counts"], 3)
+        n = int(kept["nkeep"])
+        t_words = tuple(w[:n] for w in kept["words"])
+        t_counts = kept["counts"][:n]
+        q = codes_from_numpy(c[::-1].copy(), dev)  # the reverse strand
+        inst = count.unique_batch_inst(q, k, size)
+        res[dev.type] = dict(
+            cb=cb, n=n, t_words=words_to_numpy(t_words),
+            t_counts=t_counts.cpu(),
+            join=count.profile_join(t_words, t_counts, q, k, size).cpu(),
+            join_inst=count.profile_join_inst(t_words, t_counts,
+                                              inst["s_words"],
+                                              inst["s_pos"]).cpu())
+    cpu, gpu = res["cpu"], res["cuda"]
+    for key in ("nseg", "nvalid", "overflow"):
+        assert int(gpu["cb"][key]) == int(cpu["cb"][key]), key
+    for key in ("seg_counts", "seg_valid", "hist", "pos_counts"):
+        assert torch.equal(gpu["cb"][key].cpu(), cpu["cb"][key]), key
+    for g, w in zip(words_to_numpy(gpu["cb"]["seg_words"]),
+                    words_to_numpy(cpu["cb"]["seg_words"])):
+        assert np.array_equal(g, w)
+    assert gpu["n"] == cpu["n"] > 0
+    for g, w in zip(gpu["t_words"], cpu["t_words"]):
+        assert np.array_equal(g, w)
+    assert torch.equal(gpu["t_counts"], cpu["t_counts"])
+    assert torch.equal(gpu["join"], cpu["join"])
+    assert torch.equal(gpu["join_inst"], cpu["join"])
+    assert int((cpu["join"] > 0).sum()) > 0

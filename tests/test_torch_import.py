@@ -17,7 +17,9 @@ SMALL = os.path.join(REPO, "tests", "golden", "inputs", "small.fasta")
 def test_port_imports_without_jax():
     code = ("import sys, fastk_tpu_torch, fastk_tpu_torch.pipeline.count, "
             "fastk_tpu_torch.tools.fastk, fastk_tpu_torch.ops.histker, "
-            "fastk_tpu_torch.convert; "
+            "fastk_tpu_torch.ops.count, fastk_tpu_torch.ops.kmers, "
+            "fastk_tpu_torch.ops.pack, fastk_tpu_torch.convert, "
+            "fastk_tpu_torch.device, fastk_tpu_torch._kernels; "
             "print(sorted(m for m in sys.modules "
             "if m == 'jax' or m.startswith('jax.')))")
     env = dict(os.environ)
@@ -37,8 +39,9 @@ def test_cuda_without_card_raises(monkeypatch):
     assert device_mod.resolve_device("cpu") == torch.device("cpu")
 
 
-@pytest.mark.parametrize("kw", [dict(table_min=1), dict(profiles=True),
-                                dict(relative_table=object())])
-def test_unported_modes_raise(kw):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        count_files([SMALL], 40, device="cpu", **kw)
+@pytest.mark.parametrize("kw", [dict(table_min=3, profiles=True),
+                                dict(table_min=1), dict(profiles=True)])
+def test_cuda_without_card_raises_in_every_mode(monkeypatch, kw):
+    monkeypatch.setattr(device_mod.torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        count_files([SMALL], 40, device="cuda", **kw)
