@@ -29,7 +29,19 @@ Phases, one line each; any failure raises and the script exits non-zero:
    numpy count;
 9. times on the card at 2^26 positions of the -t -p stages: count_batch,
    its key sort with positions and its position inverse, compact_table_min,
-   both joins, the host profile encode, and the whole -t3 -p batch.
+   both joins, the host profile encode, and the whole -t3 -p batch;
+10. the out-of-core job through the CLI (-M1, -P): -t3 and -t3 -p on the
+    phase-5 input, planned out of core by the measured plan, byte-identical
+    to the in-core file-sets of phase 8, with the plan and the stage times;
+11. part merges of about 5e7 records through count_files_ooc (2 parts of a
+    600 Mbp, 12 Mbp-genome input, part_cap 2^26), byte-identical to the
+    in-core -t3 run, with stage times and the device footprints of the
+    in-core jobs and of a part merge with want_back;
+12. -R: the phase-10 -t3 -p job killed (SIGKILL) after its first batch and
+    resumed, byte-identical to phase 10; the out-of-memory demotion under a
+    per-process memory cap, byte-identical to the in-core run; kmermap on
+    the card equal to the CPU; a FASTK_TPU_TRACE trace of the phase-4 job
+    with the run_hist kernel in it, and the device's busy share.
 
 Then one JSON line describing each kernel, and as the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
@@ -38,13 +50,18 @@ and prints no result. The inputs are made from fixed numpy seeds.
 
 from __future__ import annotations
 
+import glob
+import io
 import json
 import os
+import re
+import signal
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
+from contextlib import redirect_stderr, redirect_stdout
 
 import numpy as np
 
@@ -111,8 +128,8 @@ def random_words(n_pos: int, seed: int = 1):
 
 
 def write_hifi_fasta(path: str, genome_len: int, nreads: int, seed: int,
-                     err: float = 0.003) -> None:
-    """50X-HiFi-like reads: READ_LEN bases sampled from a random genome,
+                     err: float = 0.003, read_len: int = READ_LEN) -> None:
+    """50X-HiFi-like reads: read_len bases sampled from a random genome,
     `err` substitutions, half reverse-complemented; one line per read."""
     rng = np.random.default_rng(seed)
     genome = rng.integers(0, 4, genome_len, dtype=np.uint8)
@@ -120,10 +137,10 @@ def write_hifi_fasta(path: str, genome_len: int, nreads: int, seed: int,
     with open(path, "wb") as f:
         for lo in range(0, nreads, 500):
             n = min(500, nreads - lo)
-            starts = rng.integers(0, genome_len - READ_LEN + 1, n)
-            reads = genome[starts[:, None] + np.arange(READ_LEN)]
-            bump = rng.integers(1, 4, (n, READ_LEN), dtype=np.uint8)
-            reads = np.where(rng.random((n, READ_LEN)) < err,
+            starts = rng.integers(0, genome_len - read_len + 1, n)
+            reads = genome[starts[:, None] + np.arange(read_len)]
+            bump = rng.integers(1, 4, (n, read_len), dtype=np.uint8)
+            reads = np.where(rng.random((n, read_len)) < err,
                              (reads + bump) % 4, reads).astype(np.uint8)
             flip = rng.random(n) < 0.5
             reads[flip] = (3 - reads[flip])[:, ::-1]
@@ -228,6 +245,202 @@ class JoinCounter:
         return got
 
 
+class OocProbe:
+    """Times the out-of-core job on the card by wrapping what
+    pipeline/outofcore.py calls: each slice's dedup and each part merge with
+    CUDA events, the spill writes and the profile encode on the host clock,
+    and the starts of phases 2 and 3 (the first merge operands, the profile
+    writer). Counts the merges, and those with want_back. With
+    measure_back, each merge is followed by the same merge with want_back,
+    whose device footprint (peak allocation above what was allocated before
+    it, plus its operands) and time on the card are recorded apart; its
+    time counts in phase 2's wall time but not in the merge times."""
+
+    NAMES = ("unique_batch", "unique_batch_inst", "merge_unique_blocks",
+             "pad_counted", "encode_profiles_bulk", "ProfWriter")
+
+    def __init__(self, measure_back: bool = False):
+        from fastk_tpu_torch.pipeline import outofcore as ooc
+
+        self.ooc = ooc
+        self.measure_back = measure_back
+        self.slices, self.merges, self.back = [], [], []
+        self.io = {"spill": [0.0, 0], "pos": [0.0, 0]}  # seconds, bytes
+        self.encode_s = 0.0
+        self.t_merge = self.t_prof = None
+
+    @staticmethod
+    def _events():
+        import torch
+
+        return (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+
+    def __enter__(self):
+        import torch
+
+        ooc = self.ooc
+        saved = self.saved = {n: getattr(ooc, n) for n in self.NAMES}
+        self.saved_io = (ooc._Spill.append, ooc._PosSpill.append)
+
+        def dedup(fn):
+            def timed(*a):
+                ev = self._events()
+                ev[0].record()
+                res = fn(*a)
+                ev[1].record()
+                self.slices.append(ev)
+                return res
+            return timed
+
+        def merge(words, counts, want_back=False):
+            ev = self._events()
+            ev[0].record()
+            out = saved["merge_unique_blocks"](words, counts,
+                                               want_back=want_back)
+            ev[1].record()
+            n = counts.numel()
+            self.merges.append((n, want_back, ev))
+            if self.measure_back:
+                torch.cuda.synchronize()
+                before = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                evb = self._events()
+                evb[0].record()
+                saved["merge_unique_blocks"](words, counts, want_back=True)
+                evb[1].record()
+                torch.cuda.synchronize()
+                self.back.append((n, torch.cuda.max_memory_allocated()
+                                  - before + n * (8 * len(words) + 4),
+                                  evb[0].elapsed_time(evb[1])))
+            return out
+
+        def pad(*a):
+            if self.t_merge is None:
+                self.t_merge = time.perf_counter()
+            return saved["pad_counted"](*a)
+
+        def encode(*a):
+            t0 = time.perf_counter()
+            out = saved["encode_profiles_bulk"](*a)
+            self.encode_s += time.perf_counter() - t0
+            return out
+
+        def writer(*a, **kw):
+            if self.t_prof is None:
+                self.t_prof = time.perf_counter()
+            return saved["ProfWriter"](*a, **kw)
+
+        def timed_io(kind, fn, width):
+            def append(obj, i, a, b):
+                t0 = time.perf_counter()
+                fn(obj, i, a, b)
+                self.io[kind][0] += time.perf_counter() - t0
+                self.io[kind][1] += len(b) * width(obj)
+            return append
+
+        ooc.unique_batch = dedup(saved["unique_batch"])
+        ooc.unique_batch_inst = dedup(saved["unique_batch_inst"])
+        ooc.merge_unique_blocks = merge
+        ooc.pad_counted = pad
+        ooc.encode_profiles_bulk = encode
+        ooc.ProfWriter = writer
+        ooc._Spill.append = timed_io("spill", self.saved_io[0],
+                                     lambda o: 4 * (o.W + 1))
+        ooc._PosSpill.append = timed_io("pos", self.saved_io[1], lambda o: 6)
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+
+        torch.cuda.synchronize()
+        self.t_end = time.perf_counter()
+        for n, fn in self.saved.items():
+            setattr(self.ooc, n, fn)
+        self.ooc._Spill.append, self.ooc._PosSpill.append = self.saved_io
+        return False
+
+    def report(self, nbatches: int) -> dict:
+        """Stage times of the run: phase walls (s), phase 1 per batch (ms),
+        the slices' dedup on the card (ms), spill writes (MB, MB/s), the
+        merges (count, with want_back, ms on the card, the largest as
+        (records, want_back, ms)), the profile encode (ms)."""
+        slice_ms = [a.elapsed_time(b) for a, b in self.slices]
+        merges = [(n, wb, a.elapsed_time(b)) for n, wb, (a, b) in self.merges]
+        t_prof = self.t_prof or self.t_end
+        out = dict(
+            phase1_s=self.t_merge - self.t0,
+            batch_ms=(self.t_merge - self.t0) * 1e3 / max(nbatches, 1),
+            slices=len(slice_ms), slice_ms=statistics.median(slice_ms),
+            phase2_s=t_prof - self.t_merge,
+            merges=len(merges), back=sum(wb for _, wb, _ in merges),
+            largest=max(merges), merge_ms=sum(ms for _, _, ms in merges),
+            phase3_s=self.t_end - t_prof if self.t_prof else 0.0,
+            encode_ms=self.encode_s * 1e3)
+        for kind, (secs, nbytes) in self.io.items():
+            out[f"{kind}_mb"] = nbytes / 1e6
+            out[f"{kind}_mb_s"] = nbytes / 1e6 / secs if secs else 0.0
+        return out
+
+
+def ooc_line(r: dict) -> str:
+    n, _, ms = r["largest"]
+    return (f"phase 1 {r['phase1_s']:.2f} s ({r['batch_ms']:.1f} ms a batch; "
+            f"slice dedup on the card median {r['slice_ms']:.3f} ms over "
+            f"{r['slices']} slices; spill {r['spill_mb']:.0f} MB at "
+            f"{r['spill_mb_s']:.0f} MB/s), phase 2 {r['phase2_s']:.2f} s "
+            f"({r['merges']} merges, {r['back']} with want_back, "
+            f"{r['merge_ms']:.1f} ms on the card in all, the largest "
+            f"{n} records in {ms:.3f} ms; position spill {r['pos_mb']:.0f} "
+            f"MB at {r['pos_mb_s']:.0f} MB/s), phase 3 {r['phase3_s']:.2f} s "
+            f"(encode {r['encode_ms']:.1f} ms)")
+
+
+def plan_of(log: str) -> tuple:
+    """(planned parts, merges after consolidation, records of the largest
+    group) from an out-of-core run's verbose lines."""
+    parts = int(re.search(r"planning (\d+) parts", log).group(1))
+    m = re.search(r"consolidated into (\d+) merges", log)
+    groups = int(m.group(1)) if m else parts
+    sizes = [int(x) for x in re.findall(
+        r"part \d+/\d+(?: \(\+\d+\))?: (\d+) records", log)]
+    return parts, groups, max(sizes)
+
+
+def device_busy(path: str) -> tuple:
+    """(busy share of the traced run, busy share between the first and the
+    last device event, number of run_hist kernel events, the kernels that
+    took the most device time) from a torch.profiler Chrome trace: the
+    union of the device's kernel, copy and set intervals over the span of
+    all timed events."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and "ts" in e]
+    dev = sorted((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)))
+                 for e in events
+                 if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    if not dev:
+        raise AssertionError(f"no device activity in {path}")
+    busy, end = 0.0, -1.0
+    for a, b in dev:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    lo = min(float(e["ts"]) for e in events)
+    hi = max(float(e["ts"]) + float(e.get("dur", 0)) for e in events)
+    by_name = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            name = e.get("name", "")[:40]
+            by_name[name] = by_name.get(name, 0.0) + float(e.get("dur", 0))
+    top = ", ".join(f"{name} {us / 1e3:.3f} ms" for name, us in
+                    sorted(by_name.items(), key=lambda x: -x[1])[:6])
+    nhist = sum(1 for e in events if e.get("cat") == "kernel"
+                and "run_hist_kernel" in e.get("name", ""))
+    return (busy / (hi - lo), busy / (dev[-1][1] - dev[0][0]), nhist, top)
+
+
 def _cuda_ms(fn, reps: int = 7, warmup: int = 2) -> float:
     """Median milliseconds of fn() on the card, each run timed with CUDA
     events after `warmup` untimed runs."""
@@ -317,7 +530,10 @@ def main() -> int:
         _round_size,
         count_files,
     )
+    from fastk_tpu_torch.pipeline.outofcore import count_files_ooc
+    from fastk_tpu_torch.tools.fastk import _batch_bases, _measure_dedup
     from fastk_tpu_torch.tools.fastk import main as fastk_main
+    from fastk_tpu_torch.tools.kmermap import main as kmermap_main
 
     dev = torch.device("cuda")
 
@@ -485,10 +701,12 @@ def main() -> int:
         # phase 7: the -t3 -p and -t1 -p jobs on the phase-4 batch, through
         # the CLI (the fused single-batch path)
         run_hist.launches = 0
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         rc = fastk_main(["-k40", "-t3", "-p", f"-N{tmp}/p3", fasta])
         cli7_s = time.perf_counter() - t0
         launches7 = run_hist.launches
+        peak7 = torch.cuda.max_memory_allocated()
         if rc != 0 or launches7 < 1:
             raise AssertionError(f"fastk -t3 -p rc {rc}, run_hist launches "
                                  f"{launches7}")
@@ -557,10 +775,13 @@ def main() -> int:
                                  "differ from the -p profiles")
         remove_set(f"{tmp}/rel.prof")
         joins.take()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         out8 = count_files([fasta5], K, table_min=3, profiles=True,
                            out_base=f"{tmp}/big", device="cuda")
         big_s = time.perf_counter() - t0
+        peak8 = torch.cuda.max_memory_allocated()
+        write_histogram(f"{tmp}/big", out8.hist)  # phase 10 compares it
         big_joins = joins.take()
         big_prof = profile_sums(f"{tmp}/big")
         big_tab = read_ktab(f"{tmp}/big")
@@ -571,8 +792,6 @@ def main() -> int:
             raise AssertionError(
                 f"200 Mbp -t3 -p: instances {out8.hist.total_instances()}, "
                 f"profiles {big_prof}, {len(big_tab)} table entries")
-        for ext in (".ktab", ".prof"):
-            remove_set(f"{tmp}/big{ext}")
         for name, d in (("g", "cuda"), ("c", "cpu")):
             if fastk_main(["-k40", "-t1", "-p", f"-N{tmp}/{name}", fasta1],
                           device=d) != 0:
@@ -660,12 +879,289 @@ def main() -> int:
               f"{upcount_ms:.1f} ms, -t3 table fetch + .ktab write "
               f"{table_ms:.1f} ms, profile fetch {fetch_ms:.1f} ms, profile "
               f"encode + .prof write {prof_ms:.1f} ms", flush=True)
+        del codes_d, pos_np
+
+        # phase 10: out of core through the CLI at -M1 (spills under -P) on
+        # the phase-5 input, against phase 8's in-core file-sets
+        sort10 = os.path.join(tmp, "sort10")
+        os.mkdir(sort10)
+        nb10 = sum(1 for _ in batched_reads([fasta5],
+                                            _batch_bases({"M": 1})))
+        runs10 = {}
+        for name, flags, exts in (("o10t", ["-t3"], (".hist", ".ktab")),
+                                  ("o10p", ["-t3", "-p"], None)):
+            want10 = (file_set(tmp, "big", exts) if exts
+                      else file_set(tmp, "big"))
+            log = io.StringIO()
+            t0 = time.perf_counter()
+            with OocProbe() as probe, redirect_stdout(log), \
+                    redirect_stderr(log):
+                rc = fastk_main(["-k40", *flags, "-v", "-M1", f"-P{sort10}",
+                                 f"-N{tmp}/{name}", fasta5])
+            wall10 = time.perf_counter() - t0
+            text = log.getvalue()
+            r = probe.report(nb10)
+            if (rc != 0 or "out-of-core:" not in text or r["merges"] < 1
+                    or (r["back"] >= 1) != ("-p" in flags)):
+                raise AssertionError(
+                    f"phase 10 {flags}: rc {rc}, {r['merges']} merges, "
+                    f"{r['back']} with want_back; log:\n{text[-3000:]}")
+            if file_set(tmp, name) != want10:
+                raise AssertionError(f"phase 10 {flags}: the out-of-core "
+                                     "file-sets differ from the in-core ones")
+            if os.listdir(sort10):
+                raise AssertionError(f"phase 10: spills left in {sort10}: "
+                                     f"{os.listdir(sort10)}")
+            runs10[name] = (wall10, plan_of(text), r)
+        (wt, (pt, gt, lt), rt), (wp, (pp, gp, lp), rp) = (
+            runs10["o10t"], runs10["o10p"])
+        print(f"phase 10 out of core through the CLI at -M1 on the phase-5 "
+              f"200 Mbp, {nb10} batches: file-sets byte-identical to the "
+              f"in-core run of phase 8; -t3: CLI {wt:.2f} s, planned {pt} "
+              f"parts, {gt} merges after consolidation, largest group {lt} "
+              f"records, {ooc_line(rt)}; -t3 -p: CLI {wp:.2f} s, planned "
+              f"{pp} parts, {gp} merges after consolidation, largest group "
+              f"{lp} records, {ooc_line(rp)}", flush=True)
+
+        # phase 11: part merges of ~5e7 records through count_files_ooc, on
+        # a yeast-sized 50X run, against the in-core -t3 run; the device
+        # footprints behind the CLI's plan constants
+        fasta11 = os.path.join(tmp, "yeast.fasta")
+        nreads11 = 30_000
+        write_hifi_fasta(fasta11, 12_000_000, nreads11, seed=11)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        inc11 = count_files([fasta11], K, table_min=3,
+                            out_base=f"{tmp}/y_in", device="cuda")
+        incore11_s = time.perf_counter() - t0
+        peak11 = torch.cuda.max_memory_allocated()
+        write_histogram(f"{tmp}/y_in", inc11.hist)
+        want11 = nreads11 * (READ_LEN - K + 1)
+        if inc11.hist.total_instances() != want11:
+            raise AssertionError(f"600 Mbp in core: instances "
+                                 f"{inc11.hist.total_instances()} != "
+                                 f"{want11}")
+        sort11 = os.path.join(tmp, "sort11")
+        os.mkdir(sort11)
+        log = io.StringIO()
+        t0 = time.perf_counter()
+        with OocProbe(measure_back=True) as probe11, redirect_stdout(log):
+            out11 = count_files_ooc([fasta11], K, 2, sort_path=sort11,
+                                    table_min=3, part_cap=1 << 26,
+                                    out_base=f"{tmp}/y_ooc", verbose=True,
+                                    device="cuda")
+        ooc11_s = time.perf_counter() - t0
+        write_histogram(f"{tmp}/y_ooc", out11.hist)
+        r11 = probe11.report(sum(1 for _ in batched_reads([fasta11],
+                                                          64 << 20)))
+        sizes11 = [n for n, _, _ in probe11.merges]
+        if file_set(tmp, "y_ooc") != file_set(tmp, "y_in"):
+            raise AssertionError("600 Mbp: the out-of-core file-sets differ "
+                                 "from the in-core ones")
+        if len(sizes11) < 2 or min(sizes11) < 1 << 24 or os.listdir(sort11):
+            raise AssertionError(f"600 Mbp: merges of {sizes11} records "
+                                 f"(want >= 2 of >= 2^24); log:\n"
+                                 f"{log.getvalue()[-3000:]}")
+        back_n, back_bytes, back_ms = max(probe11.back)
+        # footprints: bytes at the plan's terms, est = the file's bytes,
+        # ratio = the CLI's first-slice measurement
+        est11, est5, est4 = (os.path.getsize(f) for f in
+                             (fasta11, fasta5, fasta))
+        ratio11, ratio5 = (_measure_dedup([f], K, 64 << 20, False, 0, dev)
+                           for f in (fasta11, fasta5))
+        unique_b = peak11 / (est11 * ratio11)
+        print(f"phase 11 part merges through count_files_ooc: 600 Mbp "
+              f"({nreads11} reads from a 12 Mbp genome), 2 parts at "
+              f"part_cap 2^26: merges of {sizes11} records, file-sets "
+              f"byte-identical to the in-core -t3 run ({incore11_s:.2f} s); "
+              f"out of core {ooc11_s:.2f} s: {ooc_line(r11)}; device "
+              f"footprints (max_memory_allocated): in-core -t3 at 600 Mbp "
+              f"{peak11 / 1e9:.3f} GB = {unique_b:.1f} B a block record "
+              f"(est {est11} x ratio {ratio11:.4f}); in-core -t3 -p at 200 "
+              f"Mbp {peak8 / 1e9:.3f} GB = {peak8 / est5:.1f} B a position "
+              f"(ratio {ratio5:.4f}: {peak8 / est5 - ratio5 * unique_b:.1f} "
+              f"B a position beside {unique_b:.1f} B a block record); fused "
+              f"-t3 -p CLI at 60 Mbp {peak7 / 1e9:.3f} GB = "
+              f"{peak7 / est4:.1f} B a position; a part merge with "
+              f"want_back {back_bytes / 1e9:.3f} GB = "
+              f"{back_bytes / back_n:.1f} B a record at {back_n} records, "
+              f"{back_ms:.3f} ms on the card",
+              flush=True)
+        for b in ("y_in", "y_ooc"):
+            for ext in (".hist", ".ktab"):
+                remove_set(f"{tmp}/{b}{ext}")
+        os.remove(fasta11)
+        del inc11, out11
+
+        # phase 12a: -R, the phase-10 -t3 -p job killed after its first
+        # batch is in the manifest, then resumed
+        sort12 = os.path.join(tmp, "sort12")
+        os.mkdir(sort12)
+        repo = os.path.dirname(os.path.abspath(__file__))
+        argv12 = ["-k40", "-t3", "-p", "-M1", "-R", f"-P{sort12}",
+                  f"-N{tmp}/r12", fasta5]
+        env12 = dict(os.environ, FASTK_TPU_BATCH_BASES=str(1 << 24),
+                     PYTHONPATH=repo + os.pathsep
+                     + os.environ.get("PYTHONPATH", ""))
+        nb12 = sum(1 for _ in batched_reads([fasta5], 1 << 24))
+
+        def batches_done() -> int:
+            for m in glob.glob(os.path.join(sort12, "fastk_tpu_ooc.*",
+                                            "manifest.json")):
+                try:
+                    with open(m) as f:
+                        return int(json.load(f)["batches_done"])
+                except (OSError, ValueError, KeyError):
+                    pass
+            return 0
+
+        t0 = time.perf_counter()
+        with open(os.path.join(tmp, "r12.err"), "wb") as err12:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "fastk_tpu_torch.tools.fastk",
+                 *argv12], cwd=repo, env=env12, stdout=subprocess.DEVNULL,
+                stderr=err12)
+            try:
+                while batches_done() < 1:
+                    if proc.poll() is not None:
+                        raise AssertionError(
+                            f"-R run ended (rc {proc.returncode}) before "
+                            "its first batch reached the manifest")
+                    if time.perf_counter() - t0 > 600:
+                        raise AssertionError("-R run: no manifest in 600 s")
+                    time.sleep(0.02)
+                proc.send_signal(signal.SIGKILL)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                proc.wait()
+        killed_at = batches_done()
+        if not 1 <= killed_at < nb12 or os.path.exists(f"{tmp}/r12.hist"):
+            raise AssertionError(f"-R run killed with {killed_at} of {nb12} "
+                                 "batches in the manifest")
+        os.environ["FASTK_TPU_BATCH_BASES"] = str(1 << 24)
+        try:
+            log = io.StringIO()
+            t0 = time.perf_counter()
+            with redirect_stdout(log), redirect_stderr(log):
+                rc = fastk_main(argv12 + ["-v"])
+            resume_s = time.perf_counter() - t0
+        finally:
+            os.environ.pop("FASTK_TPU_BATCH_BASES", None)
+        text = log.getvalue()
+        m = re.search(r"resume: phase 1 re-enters after batch (\d+)", text)
+        if rc != 0 or not m or int(m.group(1)) != killed_at:
+            raise AssertionError(f"-R rerun: rc {rc}; log:\n{text[-3000:]}")
+        if file_set(tmp, "r12") != file_set(tmp, "o10p") or os.listdir(
+                sort12):
+            raise AssertionError("-R: the resumed file-sets differ from "
+                                 "phase 10's, or spills were left")
+
+        # phase 12b: out-of-memory demotion. A redundant head (error-free
+        # reads of a 100 kb genome) makes the measured plan promote the job
+        # in core; the novel tail (an 80 Mbp genome at 1X) then outgrows a
+        # memory cap that fits the out-of-core job, whose reserved peak
+        # sets the cap.
+        head = os.path.join(tmp, "head.fasta")
+        tail = os.path.join(tmp, "tail.fasta")
+        write_hifi_fasta(head, 100_000, 1000, seed=12, err=0.0)
+        write_hifi_fasta(tail, 80_000_000, 4000, seed=13)
+        dem = ["-k40", "-t3", "-M1", f"-P{sort12}"]
+        total_mem = torch.cuda.get_device_properties(0).total_memory
+        os.environ["FASTK_TPU_BATCH_BASES"] = str(1 << 24)
+        try:
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_reserved()
+            torch.cuda.reset_peak_memory_stats()
+            if fastk_main(dem + ["-R", f"-N{tmp}/d_ooc", head, tail]) != 0:
+                raise AssertionError("the out-of-core demotion reference "
+                                     "failed")
+            need = torch.cuda.max_memory_reserved() - base
+            torch.cuda.empty_cache()
+            cap = torch.cuda.memory_reserved() + int(1.5 * need)
+            torch.cuda.set_per_process_memory_fraction(cap / total_mem)
+            try:
+                log = io.StringIO()
+                t0 = time.perf_counter()
+                with redirect_stdout(log), redirect_stderr(log):
+                    rc = fastk_main(dem + ["-v", f"-N{tmp}/d_dem", head,
+                                           tail])
+                demote_s = time.perf_counter() - t0
+            finally:
+                torch.cuda.set_per_process_memory_fraction(1.0)
+        finally:
+            os.environ.pop("FASTK_TPU_BATCH_BASES", None)
+        text = log.getvalue()
+        if (rc != 0 or "in-core (footprint" not in text
+                or "falling back to out-of-core" not in text):
+            raise AssertionError(f"demotion: rc {rc}; log:\n{text[-3000:]}")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        d_in = count_files([head, tail], K, table_min=3,
+                           out_base=f"{tmp}/d_in", device="cuda")
+        peak_in = torch.cuda.max_memory_reserved()
+        write_histogram(f"{tmp}/d_in", d_in.hist)
+        if not (file_set(tmp, "d_dem") == file_set(tmp, "d_in")
+                == file_set(tmp, "d_ooc")) or peak_in <= cap:
+            raise AssertionError("demotion: the demoted, in-core and "
+                                 "out-of-core file-sets differ, or the "
+                                 "in-core job fits the cap")
+
+        # phase 12c: kmermap on the card against the CPU, phase 8's 1 Mbp
+        # reads against their own -t1 table
+        beds = {}
+        for d in ("cuda", "cpu"):
+            for flag in ([], ["-m"]):
+                if kmermap_main(flag + [f"{tmp}/g.ktab", fasta1,
+                                        f"{tmp}/km_{d}"], device=d) != 0:
+                    raise AssertionError(f"kmermap on {d} failed")
+                sfx = "kmers.merge.bed" if flag else "kmers.bed"
+                with open(f"{tmp}/km_{d}.one_mbp.{sfx}", "rb") as f:
+                    beds[d, sfx] = f.read()
+        nbed = {sfx: beds["cuda", sfx].count(b"\n")
+                for sfx in ("kmers.bed", "kmers.merge.bed")}
+        if any(beds["cuda", sfx] != beds["cpu", sfx] for sfx in nbed) or (
+                nbed["kmers.bed"] != 50 * (READ_LEN - K + 1)):
+            raise AssertionError(f"kmermap: cuda and cpu beds differ, or "
+                                 f"{nbed} rows")
+
+        # phase 12d: a FASTK_TPU_TRACE trace of the phase-4 -k40 job
+        trace_dir = os.path.join(tmp, "trace")
+        os.environ["FASTK_TPU_TRACE"] = trace_dir
+        run_hist.launches = 0
+        try:
+            t0 = time.perf_counter()
+            rc = fastk_main(["-k40", f"-N{tmp}/tr", fasta])
+            trace_s = time.perf_counter() - t0
+        finally:
+            os.environ.pop("FASTK_TPU_TRACE", None)
+        launches12 = run_hist.launches
+        (tpath,) = glob.glob(os.path.join(trace_dir, "*.trace.json"))
+        busy, busy_dev, nker, top = device_busy(tpath)
+        if (rc != 0 or launches12 < 1 or nker != launches12
+                or read_histogram(f"{tmp}/tr") != hist):
+            raise AssertionError(f"trace: rc {rc}, run_hist launches "
+                                 f"{launches12}, {nker} in the trace")
+        print(f"phase 12 -R: killed (SIGKILL) with {killed_at} of {nb12} "
+              f"batches in the manifest, resumed after batch {killed_at} in "
+              f"{resume_s:.2f} s, file-sets byte-identical to phase 10; "
+              f"out-of-memory demotion under a {cap / 1e9:.3f} GB cap (the "
+              f"in-core job reserves {peak_in / 1e9:.3f} GB): demoted in "
+              f"{demote_s:.2f} s, file-sets byte-identical to the in-core "
+              f"and out-of-core runs; kmermap beds on the card = cpu "
+              f"({nbed}); trace of the -k40 job ({trace_s:.2f} s, "
+              f"{os.path.getsize(tpath)} bytes): {nker} run_hist kernel "
+              f"event(s), device busy {100 * busy:.2f} % of the run, "
+              f"{100 * busy_dev:.2f} % between its first and last device "
+              f"event; device time by kernel: {top}", flush=True)
 
     print(json.dumps({"kernels": [{
         "name": "run_hist", "route": "cuda",
         "source": "fastk_tpu_torch/csrc/run_hist.cu",
         "replaces": "fastk_tpu/ops/histker.py:72",
-        "launches": launches + launches7, "max_abs_err": max_err,
+        "launches": launches + launches7 + launches12,
+        "max_abs_err": max_err,
         "ms": kernel_ms, "plain_ms": plain_ms}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

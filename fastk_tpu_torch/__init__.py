@@ -7,10 +7,13 @@ is shared from ``fastk_tpu`` unchanged; the device code is rewritten here in
 torch ops, and the package's Pallas kernel is a CUDA kernel written for
 Hopper (``csrc/``).
 
-Covered so far: the in-core counting job with its ``.hist``, ``.ktab``
-(``-t``) and ``.prof`` (``-p``, ``-p:<table>``) outputs, single and multi
-batch — :func:`fastk_tpu_torch.pipeline.count.count_files` and
-``python -m fastk_tpu_torch.tools.fastk``.
+Covered so far: the counting job with its ``.hist``, ``.ktab`` (``-t``) and
+``.prof`` (``-p``, ``-p:<table>``) outputs, in core, single and multi batch
+(:func:`fastk_tpu_torch.pipeline.count.count_files`), and out of core under
+``-M`` with resume (:func:`fastk_tpu_torch.pipeline.outofcore
+.count_files_ooc`); the CLI ``python -m fastk_tpu_torch.tools.fastk`` with
+its memory plan; ``python -m fastk_tpu_torch.tools.kmermap``; the table
+merge ``fastk_tpu_torch.ops.tables.merge_counted``.
 
 The device is explicit everywhere (default ``"cuda"``); asking for CUDA where
 there is none raises instead of running on the CPU.

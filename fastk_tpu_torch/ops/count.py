@@ -210,17 +210,34 @@ def compact_table_min(words, counts, tmin: int):
     return dict(words=tuple(out_words), counts=c[:n], nkeep=keep.sum())
 
 
-def merge_unique_blocks(words, counts):
+def merge_unique_blocks(words, counts, want_back: bool = False):
     """Merge concatenated per-batch unique blocks into global sorted uniques.
 
     words: tuple of W int64 [size] (all-ones = empty slot); counts int32
     [size] (0 at empty slots). Returns dict(seg_words, seg_counts — the same
     layout, globally deduplicated; nuniq int64 scalar tensor; hist int64
-    [32768] — the histogram of merged counts clipped at 32767)."""
+    [32768] — the histogram of merged counts clipped at 32767).
+
+    want_back: also return rec_counts, int32 [size] — each input record's
+    merged count clipped at 32767, in input order (0 at empty slots). The
+    out-of-core profile pass reads its instances' counts from it. The input
+    index rides the sort; each sorted record gathers its segment's total by
+    its segment index (the running count of run starts), and a scatter by
+    the input index puts the totals back in input order."""
     size = counts.numel()
-    s_words, (s_counts,) = sort_keys(words, (counts,))
-    seg = segment_reduce(s_words, weights=s_counts)
-    del s_words, s_counts
+    values = (counts,)
+    if want_back:
+        values += (torch.arange(size, dtype=torch.int32,
+                                device=counts.device),)
+    s_words, s_values = sort_keys(words, values)
+    seg = segment_reduce(s_words, weights=s_values[0])
+    rec_counts = None
+    if want_back:
+        seg_of = torch.cumsum(run_starts(s_words), 0) - 1
+        rec_counts = positions_inverse(
+            s_values[1], torch.clamp(seg["seg_counts"][seg_of], max=HIST_HIGH))
+        del seg_of
+    del s_words, s_values
     slot = torch.arange(size, device=counts.device)
     real = ((slot < seg["nseg"]) & ~is_invalid_key(seg["seg_words"])
             & (seg["seg_counts"] > 0))
@@ -228,9 +245,12 @@ def merge_unique_blocks(words, counts):
     vals = torch.where(real, torch.clamp(seg_counts, max=HIST_HIGH),
                        HIST_HIGH + 1)
     hist = torch.bincount(vals, minlength=HIST_HIGH + 2)[: HIST_HIGH + 1]
-    return dict(
+    out = dict(
         seg_words=tuple(torch.where(real, w, ONES) for w in seg["seg_words"]),
         seg_counts=seg_counts, nuniq=real.sum(), hist=hist)
+    if want_back:
+        out["rec_counts"] = rec_counts
+    return out
 
 
 def fill_forward(markers: torch.Tensor, values: torch.Tensor) -> torch.Tensor:

@@ -194,21 +194,30 @@ def _device_table(table: KmerTable, k: int, dev: torch.device):
             torch.from_numpy(counts).to(dev))
 
 
-def _table(k: int, table_min: int, words, counts: torch.Tensor, n: int,
-           out_base: Optional[str], out_nparts: int):
-    """The -t<table_min> table of the first n sorted unique keys and counts
-    on the device: (in-memory KmerTable, or None when the .ktab was written
-    to out_base; number of entries). Above -t1 the entries are filtered on
-    the device (compact_table_min), so only the kept ones cross to the
-    host: at -t3 most uniques are the error tail."""
+def _table_entries(k: int, table_min: int, words, counts: torch.Tensor,
+                   n: int):
+    """The -t<table_min> entries of the first n sorted unique keys and
+    counts on the device, on the host: (packed keys, uint16 counts clipped
+    at 32767). Above -t1 the entries are filtered on the device
+    (compact_table_min), so only the kept ones cross to the host: at -t3
+    most uniques are the error tail."""
     words, counts = tuple(w[:n] for w in words), counts[:n]
     if table_min > 1:
         kept = compact_table_min(words, counts, table_min)
         n = int(kept["nkeep"])
         words, counts = kept["words"], kept["counts"]
     u_words = np.stack(words_to_numpy(w[:n] for w in words), axis=1)
-    u_counts = fetch_u16(torch.clamp(counts[:n], max=HIST_HIGH))
-    tab = KmerTable(k, table_min, words_to_packed(u_words, k), u_counts)
+    return (words_to_packed(u_words, k),
+            fetch_u16(torch.clamp(counts[:n], max=HIST_HIGH)))
+
+
+def _table(k: int, table_min: int, words, counts: torch.Tensor, n: int,
+           out_base: Optional[str], out_nparts: int):
+    """The -t<table_min> table of the first n sorted unique keys and counts
+    on the device (_table_entries): (in-memory KmerTable, or None when the
+    .ktab was written to out_base; number of entries)."""
+    tab = KmerTable(k, table_min, *_table_entries(k, table_min, words,
+                                                  counts, n))
     if out_base is None:
         return tab, len(tab)
     write_ktab(out_base, tab, nparts=out_nparts)

@@ -1,7 +1,7 @@
 """The port on a CUDA card: the run-length kernel against its plain
 version, and the device paths (histogram, uniques, the fused count, the
-table compaction and the profile joins) on CUDA against the same calls on
-the CPU.
+table compaction, the profile joins, the merge with want_back and the
+out-of-core job) on CUDA against the same calls on the CPU.
 
 Imports no JAX, so that it runs on a machine with a card and without JAX:
 
@@ -9,6 +9,8 @@ Imports no JAX, so that it runs on a machine with a card and without JAX:
 
 Every test skips without a card.
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -18,6 +20,7 @@ import chip_smoke
 from fastk_tpu_torch.convert import codes_from_numpy, words_to_numpy
 from fastk_tpu_torch.ops import count, histker
 from fastk_tpu_torch.ops.kmers import pad_needed
+from fastk_tpu_torch.pipeline.outofcore import count_files_ooc
 
 pytestmark = pytest.mark.gpu
 
@@ -132,3 +135,51 @@ def test_table_and_profile_ops_match_cpu(cuda_device, k):
     assert torch.equal(gpu["join"], cpu["join"])
     assert torch.equal(gpu["join_inst"], cpu["join"])
     assert int((cpu["join"] > 0).sum()) > 0
+
+
+@pytest.mark.parametrize("k", [17, 40])
+def test_merge_want_back_matches_cpu(cuda_device, k):
+    """merge_unique_blocks(want_back=True) on the card equals the CPU port:
+    three batches' uniques (two of them equal) with empty slots and counts
+    whose sums pass 32767."""
+    size = 1 << 18
+    blocks = {}
+    for dev in (torch.device("cpu"), cuda_device):
+        ws, cs = [], []
+        for seed in (1, 1, 2):
+            u = count.unique_batch(codes_from_numpy(_codes(k, size, seed),
+                                                    dev), k, size)
+            ws.append(u["seg_words"])
+            cs.append(u["seg_counts"].clone())
+            cs[-1][:100] += 20000  # twice in seed 1's blocks: past 32767
+        words = tuple(torch.cat([w[j] for w in ws])
+                      for j in range(len(ws[0])))
+        counts = torch.cat(cs)
+        blocks[dev.type] = count.merge_unique_blocks(words, counts,
+                                                     want_back=True)
+    cpu, gpu = blocks["cpu"], blocks["cuda"]
+    assert int(gpu["nuniq"]) == int(cpu["nuniq"])
+    for key in ("seg_counts", "hist", "rec_counts"):
+        assert torch.equal(gpu[key].cpu(), cpu[key]), key
+    for g, w in zip(words_to_numpy(gpu["seg_words"]),
+                    words_to_numpy(cpu["seg_words"])):
+        assert np.array_equal(g, w)
+    assert int(cpu["rec_counts"].max()) == 32767
+
+
+def test_ooc_with_profiles_matches_cpu(cuda_device, tmp_path):
+    """A small out-of-core -t1 -p job (3 parts, several batches, a
+    sub-split part) writes the same file-sets on the card as on the CPU."""
+    path = str(tmp_path / "reads.fasta")
+    chip_smoke.write_hifi_fasta(path, 30_000, 40, seed=3, read_len=2000)
+    sets = []
+    for dev in ("cpu", "cuda"):
+        d = tmp_path / dev
+        os.mkdir(d)
+        count_files_ooc([path], 40, 3, sort_path=str(d), table_min=1,
+                        profiles=True, batch_bases=20_000, part_cap=20_000,
+                        out_base=str(d / "o"), out_nparts=2, device=dev)
+        sets.append(chip_smoke.file_set(str(d), "o"))
+    assert sets[0] == sets[1]
+    assert any(".ktab" in n for n in sets[0])
+    assert any(".prof" in n for n in sets[0])

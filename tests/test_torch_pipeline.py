@@ -1,8 +1,9 @@
 """The port's job end to end on the CPU: byte-identical .hist files against
 the oracle goldens and against fastk_tpu's own pipeline, and the port's CLI
-against fastk_tpu's (file-sets, -p:<table>, the batch-size cap, cleanup of
-partial outputs)."""
+and kmermap against fastk_tpu's (file-sets, -p:<table>, the batch-size cap,
+cleanup of partial outputs, multi-host refusal, tracing, beds)."""
 
+import json
 import os
 
 import numpy as np
@@ -15,8 +16,10 @@ from fastk_tpu.formats.ktab import read_ktab
 from fastk_tpu.pipeline.count import count_files as jax_count_files
 from fastk_tpu.tools._cli import print_number
 from fastk_tpu.tools.fastk import main as jax_fastk_main
+from fastk_tpu.tools.kmermap import main as jax_kmermap_main
 from fastk_tpu_torch.pipeline.count import count_files
 from fastk_tpu_torch.tools.fastk import main as fastk_main
+from fastk_tpu_torch.tools.kmermap import main as kmermap_main
 
 import gen_data
 from test_torch_table import file_set
@@ -77,13 +80,61 @@ def test_cli_writes_golden_hist(tmp_path):
         os.path.join(HERE, "golden", "small_k40", "small.hist"))
 
 
-@pytest.mark.parametrize("flag", ["-R"])
-def test_cli_unported_modes_die(tmp_path, flag, capsys):
+@pytest.mark.parametrize("nprocs", ["2", "4"])
+def test_cli_unported_modes_die(tmp_path, monkeypatch, nprocs, capsys):
+    """F3: with FASTK_TPU_COORD and FASTK_TPU_NPROCS > 1 the JAX CLI runs
+    one mesh job across hosts; the port has no multi-host path, so it stops
+    before any host writes a file-set."""
+    monkeypatch.setenv("FASTK_TPU_COORD", "localhost:12355")
+    monkeypatch.setenv("FASTK_TPU_NPROCS", nprocs)
+    monkeypatch.setenv("FASTK_TPU_PROC", "0")
     with pytest.raises(SystemExit) as e:
-        fastk_main([flag, f"-N{tmp_path}/x",
+        fastk_main(["-k40", "-t", f"-N{tmp_path}/x",
                     os.path.join(INPUTS, "tiny.fasta")], device="cpu")
     assert e.value.code != 0
-    assert "not yet ported" in capsys.readouterr().err
+    assert ("fastk: multi-host runs are not yet ported"
+            in capsys.readouterr().err)
+    assert os.listdir(tmp_path) == []
+
+
+def test_cli_single_process_env_runs(tmp_path, monkeypatch):
+    """FASTK_TPU_NPROCS=1 is a single-host run, as in the JAX CLI."""
+    monkeypatch.setenv("FASTK_TPU_COORD", "localhost:12355")
+    monkeypatch.setenv("FASTK_TPU_NPROCS", "1")
+    assert fastk_main(["-k40", f"-N{tmp_path}/cli",
+                       os.path.join(INPUTS, "small.fasta")], device="cpu") == 0
+    assert _bytes(str(tmp_path / "cli.hist")) == _bytes(
+        os.path.join(HERE, "golden", "small_k40", "small.hist"))
+
+
+def test_cli_trace_writes_chrome_trace(tmp_path, monkeypatch):
+    """FASTK_TPU_TRACE=<dir> writes a torch.profiler trace of the run."""
+    monkeypatch.setenv("FASTK_TPU_TRACE", str(tmp_path / "trace"))
+    assert fastk_main(["-k40", f"-N{tmp_path}/t",
+                       os.path.join(INPUTS, "tiny.fasta")], device="cpu") == 0
+    (name,) = os.listdir(tmp_path / "trace")
+    assert name.endswith(".trace.json")
+    with open(tmp_path / "trace" / name) as f:
+        events = json.load(f)["traceEvents"]
+    assert any("sort" in str(ev.get("name", "")) for ev in events)
+    assert os.path.exists(tmp_path / "t.hist")
+
+
+@pytest.mark.parametrize("flag", [None, "-m"])
+def test_kmermap_matches_jax(tmp_path, small_table, flag):
+    """The port's kmermap writes the JAX tool's bed, with and without -m
+    (the JAX tool's beds equal the reference KmerMap's goldens)."""
+    target = os.path.join(INPUTS, "small2.fasta")
+    suffix = "kmers.merge.bed" if flag else "kmers.bed"
+    beds = []
+    for name, fn, kw in (("jax", jax_kmermap_main, {}),
+                         ("port", kmermap_main, dict(device="cpu"))):
+        args = ([flag] if flag else []) + ["-T1", small_table, target,
+                                           str(tmp_path / name)]
+        assert fn(args, **kw) == 0
+        beds.append(_bytes(str(tmp_path / f"{name}.small2.{suffix}")))
+    assert beds[0] == beds[1]
+    assert beds[1].count(b"\n") > 10
 
 
 @pytest.mark.parametrize("argv", [["-k40", "-t3", "-p", "-T3"],
