@@ -8,15 +8,19 @@ Phases, one line each; any failure raises and the script exits non-zero:
 1. device: the card's name, and its name and power limit from nvidia-smi;
 2. build: compile the CUDA kernels from ``fastk_tpu_torch/csrc``;
 3. the run-length histogram kernel against its plain torch version on the
-   card, on crafted start masks and on random ones up to 2^26 positions;
+   card, on crafted start masks (the kernel's tile edges among them), on an
+   unaligned view and on random ones up to 2^26 positions;
 4. the histogram job on one batch of about 60 Mbp of 50X-HiFi-like reads
    (2^26 positions), through the CLI, with the kernel's launch count,
    exact instance accounting and a second computation that bins the same
-   sorted keys with the plain version;
+   sorted keys with the plain version, and the kernel against the plain
+   version on the batch's start words;
 5. the job on about 200 Mbp in several batches, at two batch sizes that must
    give byte-identical histograms, and on 1 Mbp against a numpy count;
-6. times on the card at 2^26 positions: the kernel, its plain version, the
-   key sort and canonical_kmers;
+6. times on the card at 2^26 positions: the kernel (a launch in a CUDA
+   graph of 20, and one call's window), its bound and its share of it, on
+   the phase-4 batch and on a random mask, its plain version, the key sort
+   and canonical_kmers;
 7. the table-and-profile job (-t3 -p, and -t1 -p) on the phase-4 batch
    through the CLI: the kernel's launches on the fused path, the .hist equal
    to phase 4's, the -t1 counts summing to the instances, the -t3 table
@@ -81,9 +85,66 @@ def _mask_from_lengths(lengths, n: int):
     return pack_mask(mask), int(sum(lengths))
 
 
+def _mask_from_starts(starts, n: int, valid_end: int, fill=None):
+    """Start words of n positions with the given starts (and the bool mask
+    `fill` or'ed in), cleared at and after valid_end."""
+    mask = np.zeros(n, bool) if fill is None else fill.copy()
+    mask[list(starts)] = True
+    mask[valid_end:] = False
+    return pack_mask(mask), valid_end
+
+
+TILE = 1 << 15  # positions of one tile of the CUDA kernel (1024 words)
+
+
+def tile_masks(seed: int = 2):
+    """(name, start words int32, valid_end) cases at the CUDA kernel's tile
+    edges (tiles of 32768 positions; the next tile's first 4096 positions
+    are read by one warp, the rest only when those hold no start)."""
+    rng = np.random.default_rng(seed)
+    T = TILE
+    cases = [
+        # runs that end exactly at a tile's last position and at its first
+        ("tile_edge_ends", *_mask_from_starts(
+            [0, T - 1, T, T + 1, 2 * T - 1, 2 * T + 1, 3 * T - 2, 3 * T,
+             4 * T - 1, 4 * T, 5 * T + 1], 8 * T, 8 * T)),
+        # a run across one whole tile, one across two, one across an edge
+        ("runs_across_tiles", *_mask_from_starts(
+            [0, T - 5, 2 * T + 3, 3 * T - 2, 6 * T + 1, 7 * T - 100,
+             7 * T + 200], 8 * T, 8 * T)),
+        # runs of 32766, 32767 and 32768 starting in a tile's last word
+        ("lengths_32766_to_32768_from_last_word", *_mask_from_starts(
+            [0, T - 20, T - 20 + 32766, 3 * T - 7, 3 * T - 7 + 32767,
+             5 * T - 31, 5 * T - 31 + 32768], 7 * T, 7 * T)),
+        # an all-zero tile after a start; next starts past the next tile's
+        # first 4096 positions, and at its 4096th
+        ("empty_tile_after_start", *_mask_from_starts(
+            [0, 2 * T - 3, 3 * T + 10, 4 * T - 1, 4 * T + 5000, 6 * T - 1,
+             6 * T + 4095, 6 * T + 4096], 7 * T, 7 * T)),
+    ]
+    edge = np.zeros(4 * T, bool)
+    edge[T - 64: T + 64] = True
+    edge[3 * T - 32: 3 * T + 32] = True
+    edge |= rng.random(4 * T) < 0.01
+    cases.append(("ones_at_tile_edges", pack_mask(edge), 4 * T))
+    rnd = rng.random(4 * T) < 0.2
+    for name, ve in (("valid_end_mid_word", 3 * T + 17),
+                     ("valid_end_on_tile_edge", 2 * T),
+                     ("valid_end_before_tile_edge", 2 * T - 1),
+                     ("valid_end_after_tile_edge", 2 * T + 1)):
+        cases.append((name, *_mask_from_starts([], 4 * T, ve, rnd)))
+        cases.append((name + "_tail_bits", pack_mask(rnd), ve))
+    cases.append(("valid_end_0", pack_mask(rnd[:T]), 0))
+    cases.append(("valid_end_1", pack_mask(rnd[:T]), 1))
+    cases.append(("partial_last_tile", *_mask_from_starts(
+        [], 2 * T + 5024, 2 * T + 5000, rng.random(2 * T + 5024) < 0.05)))
+    return cases
+
+
 def crafted_masks(seed: int = 0):
     """(name, start words int32, valid_end) cases for the run-length kernel:
-    edge lengths, runs across word and block boundaries, invalid tails."""
+    edge lengths, runs across word and block boundaries, invalid tails, and
+    the CUDA kernel's tile edges (tile_masks)."""
     rng = np.random.default_rng(seed)
     S = 1 << 15
     one_run = np.zeros(1 << 20, bool)
@@ -109,7 +170,7 @@ def crafted_masks(seed: int = 0):
     cases.append(("tail_bits_ignored", pack_mask(tail), valid_end))
     cases.append(("random_2^20", pack_mask(rng.random(1 << 20) < 0.3),
                   1 << 20))
-    return cases
+    return cases + tile_masks()
 
 
 def random_words(n_pos: int, seed: int = 1):
@@ -155,8 +216,8 @@ def brute_count(codes: np.ndarray, k: int):
     np.unique."""
     from numpy.lib.stride_tricks import sliding_window_view
 
-    from fastk_tpu.formats.hist import HIST_HIGH, Histogram
-    from fastk_tpu.formats.ktab import KmerTable, pack_codes
+    from fastk_tpu_torch.formats.hist import HIST_HIGH, Histogram
+    from fastk_tpu_torch.formats.ktab import KmerTable, pack_codes
 
     win = sliding_window_view(codes, k)
     win = win[(win < 4).all(1)]
@@ -201,7 +262,7 @@ def file_set(d: str, base: str, exts=(".hist", ".ktab", ".prof", ".pidx")
 
 def profile_sums(path: str):
     """(reads, positions, sum of counts) over a .prof file-set."""
-    from fastk_tpu.formats.prof import ProfileIndex
+    from fastk_tpu_torch.formats.prof import ProfileIndex
 
     pi = ProfileIndex(path)
     npos = total = 0
@@ -460,6 +521,53 @@ def _cuda_ms(fn, reps: int = 7, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def _graph_ms(fn, n: int = 20, reps: int = 7) -> float:
+    """Median milliseconds of one fn() on the card: n calls captured in one
+    CUDA graph, each replay timed with CUDA events and divided by n, so that
+    the host's launch overhead stays out of the window."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / n)
+    del graph
+    return statistics.median(times)
+
+
+# the H100 SXM's published memory rate and its float32 rate outside the
+# tensor cores, for run_hist's bound
+HBM_BYTES_S = 3.35e12
+SCALAR_OPS_S = 67e12
+
+
+def run_hist_bound(words, valid_end: int) -> tuple:
+    """(bound ms, "bytes" or "operations") of one run_hist call: the start
+    words read once and the int64 histogram written once, against one
+    operation a position."""
+    nbytes = 4 * words.numel() + 8 * 32768
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, valid_end / SCALAR_OPS_S
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
 def _host_ms(fn, reps: int = 3) -> float:
     """Median wall milliseconds of fn(), the card synchronised before and
     after each run."""
@@ -483,17 +591,17 @@ def main() -> int:
               "needs a CUDA card", file=sys.stderr)
         return 1
 
-    from fastk_tpu import native
-    from fastk_tpu.formats.hist import (
+    from fastk_tpu_torch import native
+    from fastk_tpu_torch.formats.hist import (
         HIST_HIGH,
         Histogram,
         read_histogram,
         write_histogram,
     )
-    from fastk_tpu.formats.ktab import read_ktab
-    from fastk_tpu.formats.prof import encode_profiles_bulk
-    from fastk_tpu.io.reader import batched_reads
-    from fastk_tpu.tools.fastrm import remove_set
+    from fastk_tpu_torch.formats.ktab import read_ktab
+    from fastk_tpu_torch.formats.prof import encode_profiles_bulk
+    from fastk_tpu_torch.io.reader import batched_reads
+    from fastk_tpu_torch.tools.fastrm import remove_set
     from fastk_tpu_torch import _kernels
     from fastk_tpu_torch.ops.count import (
         compact_table_min,
@@ -576,8 +684,18 @@ def main() -> int:
             raise AssertionError(f"run_hist differs from run_hist_ref on "
                                  f"{name}: max abs err {err}")
         names.append(name)
-    print(f"phase 3 kernel vs plain: {len(cases)} cases equal "
-          f"({', '.join(names)}), max abs err {max_err}", flush=True)
+    # a view one word in: not 16-byte aligned, so the kernel's scalar loads
+    words = torch.from_numpy(pack_mask(
+        np.random.default_rng(3).random(1 << 20) < 0.3)).to(dev)[1:]
+    if not torch.equal(run_hist(words, (1 << 20) - 40)[0],
+                       run_hist_ref(words, (1 << 20) - 40)[0]):
+        raise AssertionError("run_hist differs from run_hist_ref on an "
+                             "unaligned view")
+    names.append("unaligned_view")
+    print(f"phase 3 kernel vs plain: {len(names)} cases equal "
+          f"({', '.join(names)}), max abs err {max_err}; "
+          f"{_kernels.load().fk_run_hist_blocks_per_sm()} blocks of 256 "
+          "threads resident per SM", flush=True)
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         # phase 4: one batch of ~60 Mbp through the CLI
@@ -616,6 +734,12 @@ def main() -> int:
         sw, valid_end = hist_device_part(device_codes(codes, dev), K, size)
         ref_bins, _ = run_hist_ref(sw, valid_end)
         ref_bins = ref_bins.cpu().numpy()
+        err = int(np.abs(run_hist(sw, valid_end)[0].cpu().numpy()
+                         - ref_bins).max())
+        max_err = max(max_err, err)
+        if err:
+            raise AssertionError(f"run_hist differs from run_hist_ref on the "
+                                 f"real 2^26 batch: max abs err {err}")
         ref = Histogram.from_bins(K, ref_bins, valid_end - int(
             (ref_bins[1:] * np.arange(1, HIST_HIGH + 1)).sum()))
         want_inst = nreads * (READ_LEN - K + 1)
@@ -631,7 +755,8 @@ def main() -> int:
               f"{main_s:.2f} s, parse {parse_s:.2f} s, host pack "
               f"{pack_s * 1e3:.1f} ms + upload+count+fetch {dev_s * 1e3:.1f} "
               f"ms = {batch.totlen / (pack_s + dev_s):.4g} bases/s, "
-              f"instances {want_inst} exact, equal to plain binning",
+              f"instances {want_inst} exact, equal to plain binning; the "
+              f"kernel equal to run_hist_ref on the batch's start words",
               flush=True)
 
         # phase 5: several batches; two batch sizes; numpy brute force
@@ -677,8 +802,10 @@ def main() -> int:
 
         # phase 6: times at 2^26 positions, on the phase-4 batch
         codes_d = device_codes(codes, dev)
-        kernel_ms = _cuda_ms(lambda: run_hist(sw, valid_end))
+        kernel_ms = _graph_ms(lambda: run_hist(sw, valid_end))
+        call_ms = _cuda_ms(lambda: run_hist(sw, valid_end))
         plain_ms = _cuda_ms(lambda: run_hist_ref(sw, valid_end))
+        bound_ms, bound_by = run_hist_bound(sw, valid_end)
         kmers_ms = _cuda_ms(lambda: canonical_kmers(codes_d, K, size))
         words, invalid = canonical_kmers(codes_d, K, size)
         folded = fold_invalid(words, invalid)
@@ -689,13 +816,24 @@ def main() -> int:
         starts_ms = _cuda_ms(lambda: start_words(s_words, valid_end))
         rnd_words, rnd_end = random_words(1 << 26)
         rnd = torch.from_numpy(rnd_words).to(dev)
-        rnd_kernel_ms = _cuda_ms(lambda: run_hist(rnd, rnd_end))
+        rnd_kernel_ms = _graph_ms(lambda: run_hist(rnd, rnd_end))
+        rnd_call_ms = _cuda_ms(lambda: run_hist(rnd, rnd_end))
         rnd_plain_ms = _cuda_ms(lambda: run_hist_ref(rnd, rnd_end))
+        rnd_bound_ms, _ = run_hist_bound(rnd, rnd_end)
+        nstarts = int(np.unpackbits(sw.cpu().numpy().view(np.uint8),
+                                    bitorder="little")[:valid_end].sum())
         print(f"phase 6 times at 2^26 positions (median of 7, CUDA events): "
-              f"run_hist kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms "
-              f"(random mask: {rnd_kernel_ms:.4f} / {rnd_plain_ms:.4f} ms); "
-              f"sort_keys {sort_ms:.3f} ms; canonical_kmers {kmers_ms:.3f} ms; "
-              f"start_words {starts_ms:.3f} ms",
+              f"run_hist kernel {kernel_ms:.4f} ms a launch in a CUDA graph "
+              f"of 20 ({call_ms:.4f} ms in a window of one call, host launch "
+              f"included), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by}: {4 * sw.numel()} B of start words + 256 KiB of "
+              f"histogram at 3.35 TB/s), {100 * bound_ms / kernel_ms:.1f} % "
+              f"of the bound, {launches} launch(es) in the phase-4 job, "
+              f"{nstarts} run starts; random mask: {rnd_kernel_ms:.4f} ms "
+              f"in the graph ({rnd_call_ms:.4f} ms one call), plain "
+              f"{rnd_plain_ms:.4f} ms, {100 * rnd_bound_ms / rnd_kernel_ms:.1f}"
+              f" % of its bound; sort_keys {sort_ms:.3f} ms; canonical_kmers "
+              f"{kmers_ms:.3f} ms; start_words {starts_ms:.3f} ms",
               flush=True)
 
         # phase 7: the -t3 -p and -t1 -p jobs on the phase-4 batch, through
@@ -1161,8 +1299,11 @@ def main() -> int:
         "source": "fastk_tpu_torch/csrc/run_hist.cu",
         "replaces": "fastk_tpu/ops/histker.py:72",
         "launches": launches + launches7 + launches12,
+        "launches_per_job": launches,
         "max_abs_err": max_err,
-        "ms": kernel_ms, "plain_ms": plain_ms}]}))
+        "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": bound_by, "library_ms": None,
+        "random_mask_ms": rnd_kernel_ms}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -72,7 +72,9 @@ def load() -> ctypes.CDLL:
     lib.fk_run_hist.restype = ctypes.c_int
     lib.fk_run_hist.argtypes = [ctypes.c_void_p, ctypes.c_longlong,
                                 ctypes.c_longlong, ctypes.c_void_p,
-                                ctypes.c_int, ctypes.c_void_p]
+                                ctypes.c_void_p]
+    lib.fk_run_hist_blocks_per_sm.restype = ctypes.c_int
+    lib.fk_run_hist_blocks_per_sm.argtypes = []
     lib.fk_cuda_error_string.restype = ctypes.c_char_p
     lib.fk_cuda_error_string.argtypes = [ctypes.c_int]
     return lib

@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import torch
 
-from fastk_tpu.formats.hist import HIST_HIGH
+from fastk_tpu_torch.formats.hist import HIST_HIGH
 from fastk_tpu_torch.ops.kmers import canonical_kmers
 
 ONES = 0xFFFFFFFF  # an invalid record or an empty slot: all-ones in every word

@@ -10,14 +10,15 @@ smoke run hold the kernel against.
 
 The TPU kernel's workarounds for its SMEM limits (the 2047 cut, the side list,
 the host-side merge and the fallback when the list overflowed) are gone: the
-full 32768-bin histogram fits in one block's shared memory on Hopper.
+CUDA kernel bins short runs in registers and shared memory and the rare long
+ones with global atomics, straight into the int64 histogram.
 """
 
 from __future__ import annotations
 
 import torch
 
-from fastk_tpu.formats.hist import HIST_HIGH
+from fastk_tpu_torch.formats.hist import HIST_HIGH
 from fastk_tpu_torch.ops.count import fold_invalid, run_starts, sort_keys
 from fastk_tpu_torch.ops.kmers import canonical_kmers
 
@@ -88,7 +89,8 @@ def run_hist(start_words: torch.Tensor, valid_end: int):
     counts the runs of length c clipped at 32767; hist[0] = 0.
 
     A CPU tensor takes run_hist_ref. A CUDA tensor launches the CUDA kernel
-    on the current stream, adds one to run_hist.launches, and raises if the
+    on the current stream (it zeroes and fills the int64 histogram itself:
+    one memset, one kernel), adds one to run_hist.launches, and raises if the
     launch fails."""
     _check(start_words, valid_end)
     if start_words.device.type == "cpu":
@@ -100,14 +102,14 @@ def run_hist(start_words: torch.Tensor, valid_end: int):
 
     lib = _kernels.load()
     dev = start_words.device
-    hist = torch.zeros(NBINS, dtype=torch.int32, device=dev)
-    err = lib.fk_run_hist(
-        start_words.data_ptr(), start_words.numel(), valid_end,
-        hist.data_ptr(), torch.cuda.get_device_properties(dev)
-        .multi_processor_count, torch.cuda.current_stream(dev).cuda_stream)
+    hist = torch.empty(NBINS, dtype=torch.int64, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.fk_run_hist(
+            start_words.data_ptr(), start_words.numel(), valid_end,
+            hist.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _kernels.check(err, "run_hist kernel launch")
     run_hist.launches += 1
-    return hist.to(torch.int64), valid_end
+    return hist, valid_end
 
 
 run_hist.launches = 0

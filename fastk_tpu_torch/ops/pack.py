@@ -17,7 +17,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from fastk_tpu import native
+from fastk_tpu_torch import native
 
 EXC_PAD = 0xFFFFFFFF  # exception-list padding; unpacks into a dump slot
 

@@ -13,7 +13,6 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
-from fastk_tpu.ops.tables import _merge_np
 from fastk_tpu_torch.device import resolve_device
 from fastk_tpu_torch.ops.count import ONES, merge_unique_blocks
 
@@ -51,6 +50,23 @@ def pad_counted(words: np.ndarray, counts: np.ndarray, device):
     return wt, ct
 
 
+def _merge_np(words_list, counts_list):
+    W = words_list[0].shape[1]
+    allw = np.concatenate(list(words_list)) if words_list else \
+        np.zeros((0, W), np.uint32)
+    allc = np.concatenate([c.astype(np.int64) for c in counts_list]) if \
+        counts_list else np.zeros(0, np.int64)
+    if len(allc) == 0:
+        return allw, allc
+    be = np.ascontiguousarray(allw.astype(">u4")).view(f"S{4 * W}").ravel()
+    order = np.argsort(be, kind="stable")
+    sw, sc, sv = allw[order], allc[order], be[order]
+    starts = np.ones(len(sv), bool)
+    starts[1:] = sv[1:] != sv[:-1]
+    idx = np.flatnonzero(starts)
+    return sw[idx], np.add.reduceat(sc, idx)
+
+
 def merge_counted(words_list: Sequence[np.ndarray],
                   counts_list: Sequence[np.ndarray], device="cuda"
                   ) -> Tuple[np.ndarray, np.ndarray]:
@@ -58,7 +74,8 @@ def merge_counted(words_list: Sequence[np.ndarray],
     Returns the sorted unique (words uint32 (m, W), counts int64).
 
     From DEVICE_MIN_ROWS rows on, one merge_unique_blocks on `device`; below
-    it the JAX package's numpy merge (lexsort and reduceat). Counts enter
+    it the numpy merge (a stable sort of the big-endian key bytes and
+    reduceat), copied from the JAX package. Counts enter
     the merge clipped to int32, as in JAX."""
     dev = resolve_device(device)
     total = sum(len(c) for c in counts_list)

@@ -18,9 +18,9 @@ Port of ``fastk_tpu/pipeline/count.py``:
   (``profile_join``);
 - ``-p:<table>`` (relative_table): no counting pass, only the join.
 
-Host reading, packing and the file formats (``fastk_tpu.io.reader``,
-``fastk_tpu.formats``, the native packer and profile encoder) are shared
-with the JAX package. Batch i+1's parse, pack and upload overlap batch i's
+Host reading, packing and the file formats (``fastk_tpu_torch.io.reader``,
+``fastk_tpu_torch.formats``, the native packer and profile encoder) are the
+port's copies of the JAX package's, which write the same bytes. Batch i+1's parse, pack and upload overlap batch i's
 device work, and in the profile pass batch i+1's join overlaps batch i's
 fetch and encode: the only waits are for one batch's counts.
 """
@@ -36,10 +36,10 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from fastk_tpu.formats.hist import HIST_HIGH, Histogram
-from fastk_tpu.formats.ktab import KmerTable, write_ktab
-from fastk_tpu.formats.prof import ProfWriter, encode_profiles_bulk
-from fastk_tpu.io.reader import ReadBatch, batched_reads
+from fastk_tpu_torch.formats.hist import HIST_HIGH, Histogram
+from fastk_tpu_torch.formats.ktab import KmerTable, write_ktab
+from fastk_tpu_torch.formats.prof import ProfWriter, encode_profiles_bulk
+from fastk_tpu_torch.io.reader import ReadBatch, batched_reads
 from fastk_tpu_torch.convert import words_to_numpy
 from fastk_tpu_torch.device import resolve_device
 from fastk_tpu_torch.ops.count import (

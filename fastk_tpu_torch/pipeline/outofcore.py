@@ -40,10 +40,10 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from fastk_tpu.formats.hist import HIST_HIGH, Histogram
-from fastk_tpu.formats.ktab import KmerTable, KtabWriter
-from fastk_tpu.formats.prof import ProfWriter, encode_profiles_bulk
-from fastk_tpu.io.reader import batched_reads
+from fastk_tpu_torch.formats.hist import HIST_HIGH, Histogram
+from fastk_tpu_torch.formats.ktab import KmerTable, KtabWriter
+from fastk_tpu_torch.formats.prof import ProfWriter, encode_profiles_bulk
+from fastk_tpu_torch.io.reader import batched_reads
 from fastk_tpu_torch.device import resolve_device
 from fastk_tpu_torch.ops.count import (
     merge_unique_blocks,

@@ -9,8 +9,8 @@ core.
 Writes <source>.hist (or <path_name>.hist), <source>.ktab with -t and
 <source>.prof with -p, each table and profile set in -T parts. With
 -p:<table> only the relative profiles are written, and -t is ignored. Flags
-and their parsing are the JAX package's (``fastk_tpu.tools.fastk
-.parse_argv``), and so is the plan:
+and their parsing (``parse_argv``, copied from ``fastk_tpu/tools/fastk.py``)
+are the JAX package's, and so is the plan:
 
 - the input's bases are estimated from its files (gzip expansion measured
   from the head, Dazzler's 2-bit .bps, a x6 guess for BAM/CRAM);
@@ -39,21 +39,22 @@ import gc
 import gzip
 import math
 import os
+import resource
 import sys
+import time
 from typing import List, Optional
 
 import torch
 
-from fastk_tpu.formats.hist import write_histogram
-from fastk_tpu.formats.ktab import read_ktab
-from fastk_tpu.io.reader import batched_reads
-from fastk_tpu.tools._cli import die, print_number, source_root
-from fastk_tpu.tools.fastk import _clean_outputs, _Timer, parse_argv
 from fastk_tpu_torch.device import resolve_device
+from fastk_tpu_torch.formats.hist import write_histogram
+from fastk_tpu_torch.formats.ktab import read_ktab
+from fastk_tpu_torch.io.reader import batched_reads
 from fastk_tpu_torch.ops.count import unique_batch
 from fastk_tpu_torch.ops.pack import upload_packed
 from fastk_tpu_torch.pipeline.count import _packed_slices, count_files
 from fastk_tpu_torch.pipeline.outofcore import count_files_ooc
+from fastk_tpu_torch.tools._cli import die, print_number, source_root
 
 # The port's device footprints, peaks of torch.cuda.max_memory_allocated
 # on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py phase 11; PERF.md):
@@ -64,6 +65,113 @@ from fastk_tpu_torch.pipeline.outofcore import count_files_ooc
 UNIQUE_BYTES = 136
 POSITION_BYTES = 69
 MERGE_BYTES = 142
+
+USAGE = """Usage: fastk [-k<int(40)>] [-t[<int(1)>]] [-p[:<table>[.ktab]]] [-c] [-bc<int>]
+             [-v] [-N<path_name>] [-P<dir($TMPDIR)>] [-M<int(12)>] [-T<int(4)>]
+                 <source>[.cram|.[bs]am|.db|.dam|.f[ast][aq][.gz] ..."""
+
+
+def parse_argv(argv):
+    """The JAX CLI's flag parser (``fastk_tpu/tools/fastk.py``), copied."""
+    cfg = dict(k=40, t=None, p=False, ptable=None, c=False, bc=0, v=False,
+               N=None, P=os.environ.get("TMPDIR", "/tmp"), M=12, T=4,
+               R=False, inputs=[])
+    for a in argv:
+        if a in ("-R", "--resume"):
+            # staged restart (reference DEVELOPER mode, FastK.c:302-315):
+            # keep the out-of-core spill on failure and re-enter after the
+            # last completed batch on rerun
+            cfg["R"] = True
+        elif a.startswith("-k"):
+            cfg["k"] = int(a[2:])
+        elif a == "-t":
+            cfg["t"] = 1
+        elif a.startswith("-t"):
+            cfg["t"] = int(a[2:])
+        elif a == "-p":
+            cfg["p"] = True
+        elif a.startswith("-p:"):
+            cfg["p"] = True
+            cfg["ptable"] = a[3:]
+        elif a == "-c":
+            cfg["c"] = True
+        elif a.startswith("-bc"):
+            cfg["bc"] = int(a[3:])
+        elif a == "-v":
+            cfg["v"] = True
+        elif a.startswith("-N"):
+            cfg["N"] = a[2:]
+        elif a.startswith("-P"):
+            cfg["P"] = a[2:]
+        elif a.startswith("-M"):
+            cfg["M"] = int(a[2:])
+        elif a.startswith("-T"):
+            cfg["T"] = int(a[2:])
+        elif a.startswith("-"):
+            die(f"fastk: {a} is an illegal option\n{USAGE}")
+        else:
+            cfg["inputs"].append(a)
+    if not cfg["inputs"]:
+        die(USAGE)
+    if cfg["k"] < 5:
+        die("fastk: k must be at least 5")
+    if cfg["k"] > 256:
+        # the reference breaks for k ≳ 128 (README.md:239); the W=ceil(k/16)
+        # word pipeline here is brute-force-validated through k=256
+        # (tests/test_k_range.py), gated there pending larger-k validation
+        die("fastk: k must be at most 256")
+    return cfg
+
+
+def _clean_outputs(out_base: str) -> None:
+    """Remove partial output file-sets on failure (the Clean_Exit analog,
+    reference FastK.c:181-221)."""
+    from fastk_tpu_torch.tools.fastrm import remove_set
+
+    for ext in (".hist", ".ktab", ".prof"):
+        try:
+            remove_set(out_base + ext, force=True)
+        except Exception:
+            pass
+
+
+class _Timer:
+    """The timeTo analog (FastK.c:104-175): per-phase user/sys/wall deltas
+    and %utilization in the reference's format ("M:SS.mmm" past a minute,
+    else "S.mmm", tagged u/s/w), plus a Total line with peak RSS in MB."""
+
+    def __init__(self):
+        self._mark = self._now()
+        self._init = self._mark
+
+    @staticmethod
+    def _now():
+        ru = resource.getrusage(resource.RUSAGE_SELF)
+        return (ru.ru_utime, ru.ru_stime, time.time(), ru.ru_maxrss)
+
+    @staticmethod
+    def _fmt(secs: float, tag: str) -> str:
+        ms = int(round(secs * 1000))
+        if secs >= 60:
+            return f"{ms // 60000}:{(ms // 1000) % 60:02d}.{ms % 1000:03d}{tag}"
+        return f"{ms // 1000}.{ms % 1000:03d}{tag}"
+
+    def _line(self, label: str, base) -> tuple:
+        now = self._now()
+        u, s, w = (now[i] - base[i] for i in range(3))
+        txt = (f"{label}  {self._fmt(u, 'u')}  {self._fmt(s, 's')}"
+               f"  {self._fmt(w, 'w')}  {100 * (u + s) / max(w, 1e-9):.1f}%")
+        return txt, now
+
+    def phase(self) -> None:
+        txt, now = self._line("\n  Resources for phase:", self._mark)
+        print(txt, file=sys.stderr)
+        self._mark = now
+
+    def total(self) -> None:
+        txt, now = self._line("\nTotal Resources:", self._init)
+        # linux ru_maxrss is KB (the reference's /1000000 assumes bytes)
+        print(f"{txt}  {print_number(now[3] // 1000)}MB", file=sys.stderr)
 
 
 def _batch_bases(cfg) -> int:
@@ -102,7 +210,7 @@ def _est_base_bytes(f: str, heuristic: List[str]) -> int:
     sz = os.path.getsize(f)
     low = f.lower()
     if low.endswith((".db", ".dam")):
-        from fastk_tpu.io.dazz import _hidden
+        from fastk_tpu_torch.io.dazz import _hidden
 
         bps = _hidden(f, ".bps")
         if os.path.exists(bps):

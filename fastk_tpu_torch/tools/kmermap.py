@@ -18,8 +18,8 @@ import sys
 
 import numpy as np
 
-from fastk_tpu.formats.ktab import read_ktab
-from fastk_tpu.tools._cli import die, root_name
+from fastk_tpu_torch.formats.ktab import read_ktab
+from fastk_tpu_torch.tools._cli import die, root_name
 from fastk_tpu_torch.pipeline.count import count_files
 
 USAGE = ("Usage: kmermap [-vm] [-T<int(4)>] [-P<dir(/tmp)> <kmers>[.ktab]"

@@ -46,6 +46,40 @@ def test_kernel_matches_plain(cuda_device):
         assert torch.equal(got, want), name
 
 
+TILE_CASES = chip_smoke.tile_masks()
+
+
+@pytest.mark.parametrize("case", TILE_CASES, ids=[c[0] for c in TILE_CASES])
+def test_kernel_at_tile_edges(cuda_device, case):
+    """The kernel's tile edges (32768 positions a tile) against the plain
+    version and a numpy count."""
+    _name, words, valid_end = case
+    t = torch.from_numpy(np.ascontiguousarray(words)).to(cuda_device)
+    got, _ = histker.run_hist(t, valid_end)
+    want, _ = histker.run_hist_ref(t, valid_end)
+    bits = np.unpackbits(words.view(np.uint8), bitorder="little")
+    bits = bits[:valid_end].astype(bool)
+    if valid_end:
+        bits[0] = True
+    pos = np.flatnonzero(bits)
+    lens = np.diff(np.append(pos, valid_end))
+    assert torch.equal(got, want)
+    assert np.array_equal(got.cpu().numpy(), np.bincount(
+        np.minimum(lens, 32767), minlength=32768))
+
+
+def test_kernel_on_unaligned_view(cuda_device):
+    """A view one word in is not 16-byte aligned: the kernel's scalar
+    loads."""
+    rng = np.random.default_rng(9)
+    t = torch.from_numpy(chip_smoke.pack_mask(rng.random(1 << 20) < 0.3))
+    t = t.to(cuda_device)[1:]
+    assert t.data_ptr() % 16
+    for valid_end in (t.numel() * 32, t.numel() * 32 - 5, 40000):
+        assert torch.equal(histker.run_hist(t, valid_end)[0],
+                           histker.run_hist_ref(t, valid_end)[0])
+
+
 def test_kernel_rejects_cpu_only_arguments(cuda_device):
     t = torch.zeros(8, dtype=torch.int64, device=cuda_device)
     with pytest.raises(ValueError):

@@ -8,7 +8,6 @@ import jax.numpy as jnp
 
 import fastk_tpu.ops.pack as jpack
 import fastk_tpu_torch.ops.pack as tpack
-from fastk_tpu import native
 
 
 def _stream(n, seed):
@@ -40,7 +39,7 @@ def test_unpack_words_matches_jax(n):
 def test_numpy_packer_matches_native(monkeypatch):
     codes = _stream(5000, 3)
     native_out = tpack.pack_stream_words(codes)
-    monkeypatch.setattr(native, "pack2", lambda *a, **kw: None)
+    monkeypatch.setattr(tpack.native, "pack2", lambda *a, **kw: None)
     numpy_out = tpack.pack_stream_words(codes)
     for a, b in zip(native_out, numpy_out):
         assert np.array_equal(a, b)
