@@ -45,7 +45,16 @@ Phases, one line each; any failure raises and the script exits non-zero:
     resumed, byte-identical to phase 10; the out-of-memory demotion under a
     per-process memory cap, byte-identical to the in-core run; kmermap on
     the card equal to the CPU; a FASTK_TPU_TRACE trace of the phase-4 job
-    with the run_hist kernel in it, and the device's busy share.
+    with the run_hist kernel in it, and the device's busy share;
+13. the table tools, each through its launcher in fastk_tpu_torch/bin/, on
+    the phase-5 input split by read into halves A and B, whose -t1 tables
+    (about 1.6e7 entries each, counted on the card) fastmerge merges into
+    the whole's -t1 table, also in -S slices spliced by fastcat;
+    merge_tables and logex_apply (every expression shape) with their union
+    on the card, equal to the CPU and to the native fastmerge and logex,
+    with the union's times; vennex, histex, tabex, profex, haplex, homex,
+    symmex, fastcp, fastmv and fastrm, each checked against the port's
+    readers; a host launcher's start-up, and no host tool loading torch.
 
 Then one JSON line describing each kernel, and as the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
@@ -445,6 +454,410 @@ class OocProbe:
         return out
 
 
+class UnionProbe:
+    """Times the library union (tools/fastmerge.merge_tables,
+    algebra.merge_universe) by wrapping what it calls: the host key packing
+    (ops/kmers.py packed_to_words and words_to_packed), merge_counted
+    (upload, merge, fetch) and in it the upload (pad_counted, the card
+    synchronised after it) on the host clock, and the merge on the card
+    (merge_unique_blocks) with CUDA events, with its row count."""
+
+    def __enter__(self):
+        import torch
+
+        from fastk_tpu_torch.ops import kmers, tables
+
+        self.mods = (kmers, tables)
+        self.saved = (kmers.packed_to_words, kmers.words_to_packed,
+                      tables.merge_counted, tables.merge_unique_blocks,
+                      tables.pad_counted)
+        self.host = {"packed_to_words": 0.0, "words_to_packed": 0.0,
+                     "merge_counted": 0.0, "pad_counted": 0.0}
+        self.merges = []
+
+        def timed(name, fn):
+            def run(*a, **kw):
+                t0 = time.perf_counter()
+                out = fn(*a, **kw)
+                if name == "pad_counted":
+                    torch.cuda.synchronize()
+                self.host[name] += time.perf_counter() - t0
+                return out
+            return run
+
+        def merge(words, counts, want_back=False):
+            ev = OocProbe._events()
+            ev[0].record()
+            out = self.saved[3](words, counts, want_back=want_back)
+            ev[1].record()
+            self.merges.append((counts.numel(), ev))
+            return out
+
+        kmers.packed_to_words = timed("packed_to_words", self.saved[0])
+        kmers.words_to_packed = timed("words_to_packed", self.saved[1])
+        tables.merge_counted = timed("merge_counted", self.saved[2])
+        tables.merge_unique_blocks = merge
+        tables.pad_counted = timed("pad_counted", self.saved[4])
+        return self
+
+    def __exit__(self, *exc):
+        kmers, tables = self.mods
+        (kmers.packed_to_words, kmers.words_to_packed, tables.merge_counted,
+         tables.merge_unique_blocks, tables.pad_counted) = self.saved
+        return False
+
+    def report(self) -> dict:
+        """Host ms by stage, the merges' rows and their ms on the card."""
+        out = {k: v * 1e3 for k, v in self.host.items()}
+        out["rows"] = [n for n, _ in self.merges]
+        out["card_ms"] = sum(a.elapsed_time(b) for _, (a, b) in self.merges)
+        return out
+
+
+# runs `-m <module> args` as python would, and records at exit whether the
+# module loaded torch: the FASTK_PYTHON of the launchers in phase 13
+_RECORDER = r'''
+import atexit, os, runpy, sys
+
+@atexit.register
+def _record():
+    with open(os.environ["CHIP_SMOKE_MODULES"], "a") as f:
+        f.write("%s %d\n" % (sys.argv[0], "torch" in sys.modules))
+
+assert sys.argv[1] == "-m"
+sys.argv = sys.argv[2:]
+runpy.run_module(sys.argv[0], run_name="__main__", alter_sys=True)
+'''
+
+HOST_TOOLS = ("histex", "tabex", "profex", "fastrm", "fastmv", "fastcp",
+              "logex", "symmex", "fastmerge", "fastcat", "vennex", "haplex",
+              "homex")
+
+# every expression shape of the Logex grammar, over tables A, B and C
+ALL_SHAPES = [
+    ("XU", "A|+B|+C"), ("XI", "A&.B&.C"), ("XD", "(A-B)-C"),
+    ("XX", "A^B"), ("XN", "#(A|B)"), ("XM1", "A|<B"), ("XM2", "A|>B"),
+    ("XM3", "A|*B"), ("XM4", "A&-B"), ("XF", "A[5-200]|+B[2-]"),
+    ("XG", "A{40-60}"), ("XC", "(A&+B)[10-3000]{20-80}"),
+    ("XP", "#A|+#B|+#C"),
+]
+
+
+class Launchers:
+    """Runs the port's launchers (fastk_tpu_torch/bin/<tool>) as
+    subprocesses, with the repo's root in front of PYTHONPATH as the
+    launchers put it. FASTK_PYTHON is a stand-in interpreter that records,
+    for each run, whether the tool loaded torch. Walls are summed by
+    tool."""
+
+    def __init__(self, tmp: str):
+        self.bin = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "fastk_tpu_torch", "bin")
+        rec = os.path.join(tmp, "recorder.py")
+        with open(rec, "w") as f:
+            f.write(_RECORDER)
+        py = os.path.join(tmp, "python-recorder")
+        with open(py, "w") as f:
+            f.write(f'#!/bin/sh\nexec "{sys.executable}" "{rec}" "$@"\n')
+        os.chmod(py, 0o755)
+        self.log = os.path.join(tmp, "modules.log")
+        self.env = dict(os.environ, FASTK_PYTHON=py,
+                        CHIP_SMOKE_MODULES=self.log)
+        self.walls = {}
+
+    def __call__(self, tool: str, *argv, cwd=None, record=True) -> str:
+        t0 = time.perf_counter()
+        r = subprocess.run([os.path.join(self.bin, tool), *argv], cwd=cwd,
+                           env=self.env if record else None,
+                           capture_output=True, text=True, timeout=900)
+        self.walls[tool] = (self.walls.get(tool, 0.0)
+                            + time.perf_counter() - t0)
+        if r.returncode != 0:
+            raise AssertionError(f"{tool} {' '.join(argv)}: rc "
+                                 f"{r.returncode}\n{r.stderr[-3000:]}")
+        return r.stdout
+
+    def torch_loaded(self) -> dict:
+        """{tool: whether any of its recorded runs loaded torch}."""
+        out = {}
+        with open(self.log) as f:
+            for line in f:
+                mod, flag = line.split()
+                tool = mod.rsplit(".", 1)[-1]
+                out[tool] = out.get(tool, False) or flag == "1"
+        return out
+
+
+def _entries_equal(a, b) -> bool:
+    return (len(a) == len(b) and np.array_equal(a.packed, b.packed)
+            and np.array_equal(a.counts, b.counts))
+
+
+def table_tools_phase(tmp: str, fasta: str, prof: str) -> None:
+    """Phase 13: the table tools on a bacterial 50X run. `fasta` is split by
+    read into halves A and B; -t1 tables of A, B and of C, its first 20
+    reads (the CLI in this process), and of the whole (bin/fastk) are
+    counted on the card. `prof` is a .prof file-set for profex and for
+    fastcp/fastmv/fastrm. Raises on any disagreement."""
+    import torch
+
+    from fastk_tpu_torch.algebra import logex_apply
+    from fastk_tpu_torch.formats.hist import read_histogram
+    from fastk_tpu_torch.formats.ktab import (kmer_to_string, pack_kmer,
+                                              read_ktab, write_ktab)
+    from fastk_tpu_torch.formats.prof import ProfileIndex
+    from fastk_tpu_torch.ops.canonical import revcomp_packed
+    from fastk_tpu_torch.ops.count import merge_unique_blocks
+    from fastk_tpu_torch.ops.histker import run_hist
+    from fastk_tpu_torch.ops.kmers import packed_to_words
+    from fastk_tpu_torch.ops.tables import pad_counted
+    from fastk_tpu_torch.tools.fastk import main as fastk_main
+    from fastk_tpu_torch.tools.fastmerge import merge_tables
+
+    smi = _smi()
+    launch = Launchers(tmp)
+    run_hist.launches = 0
+    t13 = time.perf_counter()
+
+    # the input: halves A and B by read, -t1 tables of A, B and the whole
+    with open(fasta, "rb") as f:
+        lines = f.read().split(b"\n")
+    nreads = len(lines) // 2
+    half = 2 * (nreads // 2)
+    for name, part in (("A", lines[:half]), ("B", lines[half: 2 * nreads]),
+                       ("C", lines[:40])):
+        with open(os.path.join(tmp, f"half{name}.fasta"), "wb") as f:
+            f.write(b"\n".join(part) + b"\n")
+    del lines
+    ha, hb, hw, table_c = (os.path.join(tmp, n)
+                           for n in ("ha", "hb", "hw", "hsub"))
+    t0 = time.perf_counter()
+    for base, name in ((ha, "A"), (hb, "B"), (table_c, "C")):
+        if fastk_main(["-k40", "-t1", f"-N{base}",
+                       os.path.join(tmp, f"half{name}.fasta")]) != 0:
+            raise AssertionError(f"fastk -t1 of half {name} failed")
+    halves_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    launch("fastk", "-k40", "-t1", f"-N{hw}", fasta)
+    ta, tb, tw = read_ktab(ha), read_ktab(hb), read_ktab(hw)
+    print(f"phase 13 input: {nreads} reads split into halves of "
+          f"{nreads // 2} and {nreads - nreads // 2}; -t1 tables counted on "
+          f"the card: A {len(ta)}, B {len(tb)}, whole {len(tw)} entries, C "
+          f"(the first 20 reads) {len(read_ktab(table_c))} "
+          f"({len(ta) + len(tb) - len(tw)} shared by A and B); A, B and C "
+          f"{halves_s:.2f} s in this process, the whole {launch.walls['fastk']:.2f}"
+          f" s through bin/fastk [{smi}]", flush=True)
+
+    # 13a: fastmerge of the halves = the whole; slices spliced by fastcat
+    hm = os.path.join(tmp, "hm")
+    launch("fastmerge", "-T4", "-ht", hm, ha, hb)
+    merge_s = launch.walls["fastmerge"]
+    tm = read_ktab(hm)
+    if not _entries_equal(tm, tw):
+        raise AssertionError("fastmerge of the halves differs from the "
+                             "whole's -t1 table")
+    if not np.array_equal(read_histogram(hm).counts,
+                          read_histogram(hw).counts):
+        raise AssertionError("fastmerge's .hist bins differ from the "
+                             "whole's")
+    for n in (1, 2):
+        launch("fastmerge", "-T4", "-t", f"-S{n}of2",
+               os.path.join(tmp, f"hs{n}"), ha, hb)
+    launch("fastcat", "-t", os.path.join(tmp, "hc"),
+           os.path.join(tmp, "hs1"), os.path.join(tmp, "hs2"))
+    if not _entries_equal(read_ktab(os.path.join(tmp, "hc")), tm):
+        raise AssertionError("fastcat of the -S slices differs from the "
+                             "unsliced merge")
+
+    # 13b: the library merge on the card, against the CPU and 13a
+    rows = len(ta) + len(tb)
+    walls = []
+    for _ in range(2):
+        with UnionProbe() as probe:
+            t0 = time.perf_counter()
+            got = merge_tables([ta, tb], device="cuda")
+            walls.append(time.perf_counter() - t0)
+        if not _entries_equal(got, tm):
+            raise AssertionError("merge_tables on the card differs from "
+                                 "fastmerge")
+        del got
+    rep_b = probe.report()
+    t0 = time.perf_counter()
+    cpu = merge_tables([ta, tb], device="cpu")
+    cpu_s = time.perf_counter() - t0
+    if not _entries_equal(cpu, tm):
+        raise AssertionError("merge_tables on the CPU differs")
+    del cpu
+    words = packed_to_words(np.concatenate([ta.packed, tb.packed]), 40)
+    counts = np.concatenate([ta.counts, tb.counts]).astype(np.int32)
+    wt, ct = pad_counted(words, counts, torch.device("cuda"))
+    del words, counts
+    merge_ms = _cuda_ms(lambda: merge_unique_blocks(wt, ct), reps=5)
+    del wt, ct
+    torch.cuda.empty_cache()
+    smi_b = _smi()
+    print(f"phase 13a-b union of the halves: bin/fastmerge -T4 -ht "
+          f"{merge_s:.2f} s, entries and .hist bins equal to the whole's "
+          f"-t1 count; -S1of2 + -S2of2 spliced by bin/fastcat equal to the "
+          f"unsliced merge; merge_tables on the card {walls[0]:.2f} s, "
+          f"{walls[1]:.2f} s (second call: packed_to_words "
+          f"{rep_b['packed_to_words']:.1f} ms, merge_counted "
+          f"{rep_b['merge_counted']:.1f} ms of which the upload "
+          f"{rep_b['pad_counted']:.1f} ms and the merge on the card "
+          f"{rep_b['card_ms']:.3f} ms at {rep_b['rows']} rows, "
+          f"words_to_packed {rep_b['words_to_packed']:.1f} ms), on the CPU "
+          f"{cpu_s:.2f} s, both equal to fastmerge; merge_unique_blocks at "
+          f"{rows} rows {merge_ms:.3f} ms on the card (median of 5, CUDA "
+          f"events) [{smi_b}]", flush=True)
+
+    # 13c: logex, every expression shape: native streamed CLI against the
+    # library evaluator with its union on the card
+    tc = read_ktab(table_c)
+    lx = os.path.join(tmp, "lx")
+    os.mkdir(lx)
+    launch("logex", "-T4", "-h1:100",
+           *(f"{os.path.join(lx, n)}={e}" for n, e in ALL_SHAPES),
+           f"{ha}.ktab", f"{hb}.ktab", f"{table_c}.ktab")
+    with UnionProbe() as probe:
+        t0 = time.perf_counter()
+        res = logex_apply(ALL_SHAPES, [ta, tb, tc], (1, 100), device="cuda")
+        apply_s = time.perf_counter() - t0
+    rep_c = probe.report()
+    sizes = []
+    for name, t, h in res:
+        base = os.path.join(lx, name)
+        if not _entries_equal(read_ktab(base), t):
+            raise AssertionError(f"logex {name}: the CLI's table differs "
+                                 "from logex_apply's")
+        if read_histogram(base) != h:
+            raise AssertionError(f"logex {name}: the histograms differ")
+        sizes.append(len(t))
+    del res
+    print(f"phase 13c logex, {len(ALL_SHAPES)} expression shapes over A, B "
+          f"and a {len(tc)}-entry C, -h1:100: bin/logex -T4 "
+          f"{launch.walls['logex']:.2f} s, logex_apply on the card "
+          f"{apply_s:.2f} s (union on the card {rep_c['card_ms']:.3f} ms at "
+          f"{rep_c['rows']} rows; merge_counted {rep_c['merge_counted']:.1f} "
+          f"ms with its upload {rep_c['pad_counted']:.1f} ms, key packing "
+          f"{rep_c['packed_to_words']:.1f} + "
+          f"{rep_c['words_to_packed']:.1f} ms); every table and histogram "
+          f"equal; entries {dict(zip((n for n, _ in ALL_SHAPES), sizes))}",
+          flush=True)
+
+    # 13d: the other tools, each against the port's readers
+    venn = os.path.join(tmp, "venn")
+    os.mkdir(venn)
+    launch("vennex", "-h1:32767", f"{ha}.ktab", f"{hb}.ktab", cwd=venn)
+    only_a, only_b, both = (int(read_histogram(os.path.join(venn, n)).counts
+                                .sum()) for n in ("HA_hb", "ha_HB", "HA_HB"))
+    if (only_a + both, only_b + both) != (len(ta), len(tb)):
+        raise AssertionError(f"vennex regions {only_a}, {only_b}, {both} do "
+                             f"not add up to A {len(ta)} and B {len(tb)}")
+    hist = read_histogram(hw)
+    out = launch("histex", "-A", "-h1:32767", f"{hw}.hist")
+    listed = {int(a): int(b) for a, b in (ln.split("\t")
+                                          for ln in out.splitlines())}
+    if listed != {f: int(c) for f, c in enumerate(hist.counts, 1) if c}:
+        raise AssertionError("histex -A differs from the .hist")
+    if "Table is OK" not in launch("tabex", "-C", f"{hw}.ktab"):
+        raise AssertionError("tabex -C rejects the whole's table")
+    out = launch("tabex", f"{hw}.ktab", "0-99").splitlines()
+    want = [f" {i:9d}: {kmer_to_string(tw.packed[i], 40)} = "
+            f"{int(tw.counts[i]):5d}" for i in range(100)]
+    if out[0] != f"Opening 40-mer table with {len(tw):,} entries" or (
+            out[1:] != want):
+        raise AssertionError("tabex's listing differs from the table")
+    pi = ProfileIndex(prof)
+    out = launch("profex", prof, "1-2")
+    want = "".join(f"\nRead {p + 1}:\n" + "".join(
+        f" {i:5d}: {v:5d}\n" for i, v in enumerate(pi.fetch(p)))
+        for p in range(2))
+    if out != want:
+        raise AssertionError("profex differs from the profiles")
+    hap = [ln for ln in launch("haplex", "-g2:100", f"{hw}.ktab").splitlines()
+           if ln]
+    view = tw.packed.view("S10").ravel()
+    for ln in hap[:2000]:
+        s, c = ln.split()
+        key = np.frombuffer(pack_kmer(s.lower()).tobytes(), "S10")[0]
+        i = int(np.searchsorted(view, key))
+        if i >= len(tw) or view[i] != key or (
+                int(tw.counts[i]) != int(c) or not 2 <= int(c) <= 100):
+            raise AssertionError(f"haplex lists {ln}, not in the table")
+    if not hap:
+        raise AssertionError("haplex found no pair")
+    # homex walks the table in Python (~8 us an entry on the host), so it
+    # reads C, as counted and as rewritten in 5 parts
+    write_ktab(os.path.join(tmp, "hsub5"), tc, nparts=5)
+    homex = [launch("homex", "-e3", "-g5:100", f"{b}.ktab")
+             for b in (table_c, os.path.join(tmp, "hsub5"))]
+    if homex[0] != homex[1] or " at:" not in homex[0]:
+        raise AssertionError("homex differs between two part layouts of "
+                             "one table")
+    hsym = os.path.join(tmp, "hsym")
+    launch("symmex", "-T4", f"{hw}.ktab", hsym)
+    sym = read_ktab(hsym)
+    pal = np.all(revcomp_packed(tw.packed, 40) == tw.packed, axis=1)
+    c64 = tw.counts.astype(np.int64)
+    if (len(sym) != 2 * len(tw) - int(pal.sum()) or not sym.check_sorted()
+            or int(sym.counts.astype(np.int64).sum())
+            != 2 * int(c64.sum()) - int(c64[pal].sum())):
+        raise AssertionError("symmex's table is not the whole's with its "
+                             "reverse complements")
+    pdir = os.path.dirname(prof)
+    pbase = os.path.basename(prof)
+    want = file_set(pdir, pbase)
+    for d in ("cp", "mv"):
+        os.mkdir(os.path.join(tmp, d))
+    launch("fastcp", prof, os.path.join(tmp, "cp"))
+    launch("fastmv", os.path.join(tmp, "cp", pbase), os.path.join(tmp, "mv"))
+    got_cp, left = file_set(os.path.join(tmp, "mv"), pbase), os.listdir(
+        os.path.join(tmp, "cp"))
+    launch("fastrm", os.path.join(tmp, "mv", pbase))
+    if (got_cp != want or left or os.listdir(os.path.join(tmp, "mv"))
+            or file_set(pdir, pbase) != want or len(want) < 6):
+        raise AssertionError("fastcp/fastmv/fastrm lost or left parts of "
+                             f"{sorted(want)}")
+
+    # 13e: start-up of a host launcher, and no host tool loaded torch
+    small_hist = f"{table_c}.hist"
+    starts = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        launch("histex", small_hist, record=False)
+        starts.append(time.perf_counter() - t0)
+    loaded = launch.torch_loaded()
+    if set(loaded) != set(HOST_TOOLS) | {"fastk"} or any(
+            loaded[t] for t in HOST_TOOLS) or not loaded["fastk"]:
+        raise AssertionError(f"torch loaded by tool: {loaded}")
+    if run_hist.launches:
+        raise AssertionError("phase 13 launched run_hist")
+    w = launch.walls
+    print(f"phase 13d-e: vennex regions {only_a} + {both} = A, {only_b} + "
+          f"{both} = B ({w['vennex']:.2f} s); histex -A = the .hist; tabex "
+          f"-C OK and its listing = the reader's; profex = the profiles; "
+          f"haplex {len(hap)} lines, each in the table ({w['haplex']:.2f} s);"
+          f" homex on C equal on two part layouts ({w['homex']:.2f} s for "
+          f"both); "
+          f"symmex {len(sym)} entries = 2 x {len(tw)} - {int(pal.sum())} "
+          f"palindromes ({w['symmex']:.2f} s); fastcp, fastmv, fastrm moved "
+          f"and removed all {len(want)} files of the set; host launcher "
+          f"start-up (histex on a small .hist) "
+          f"{statistics.median(starts) * 1e3:.0f} ms (median of 3); the 13 "
+          f"host tools ran without torch in sys.modules, bin/fastk with it; "
+          f"run_hist launches 0; phase 13 {time.perf_counter() - t13:.1f} s "
+          f"[{_smi()}]", flush=True)
+
+
+def _smi() -> str:
+    """The card's name and power limit as nvidia-smi reports them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
 def ooc_line(r: dict) -> str:
     n, _, ms = r["largest"]
     return (f"phase 1 {r['phase1_s']:.2f} s ({r['batch_ms']:.1f} ms a batch; "
@@ -590,6 +1003,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs a CUDA card", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
 
     from fastk_tpu_torch import native
     from fastk_tpu_torch.formats.hist import (
@@ -647,11 +1061,7 @@ def main() -> int:
 
     # phase 1: device
     kind = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    smi = _smi()
     print(f"phase 1 device: {kind}, {torch.cuda.device_count()} card(s), "
           f"torch {torch.__version__}, CUDA {torch.version.cuda}, native "
           f"host codecs {'loaded' if native.load() else 'absent'}", flush=True)
@@ -1293,6 +1703,12 @@ def main() -> int:
               f"event(s), device busy {100 * busy:.2f} % of the run, "
               f"{100 * busy_dev:.2f} % between its first and last device "
               f"event; device time by kernel: {top}", flush=True)
+
+        # phase 13: the table tools and the library union on the card
+        table_tools_phase(tmp, fasta5, f"{tmp}/p1")
+
+    print(f"phases 1-13 in {time.perf_counter() - t_start:.1f} s [{_smi()}]",
+          flush=True)
 
     print(json.dumps({"kernels": [{
         "name": "run_hist", "route": "cuda",

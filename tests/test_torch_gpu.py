@@ -217,3 +217,49 @@ def test_ooc_with_profiles_matches_cpu(cuda_device, tmp_path):
     assert sets[0] == sets[1]
     assert any(".ktab" in n for n in sets[0])
     assert any(".prof" in n for n in sets[0])
+
+
+def _random_table(n: int, k: int, seed: int, common=None):
+    """A sorted table of about n distinct k-mers, numpy-seeded; `common`
+    (packed rows) is merged in, so that two tables share keys."""
+    from fastk_tpu_torch.formats.ktab import KmerTable
+
+    rng = np.random.default_rng(seed)
+    kb = (k + 3) // 4
+    packed = rng.integers(0, 256, (n, kb), dtype=np.uint8)
+    if k % 4:
+        packed[:, -1] &= (0xFF << (2 * (4 - k % 4))) & 0xFF
+    if common is not None:
+        packed = np.concatenate([packed, common])
+    view = np.ascontiguousarray(packed).view(f"S{kb}").ravel()
+    _, idx = np.unique(view, return_index=True)
+    packed = np.ascontiguousarray(packed[idx])
+    counts = rng.integers(1, 3000, len(packed)).astype(np.uint16)
+    return KmerTable(k, 1, packed, counts)
+
+
+@pytest.mark.parametrize("k", [31, 40])
+def test_library_unions_match_cpu(cuda_device, k):
+    """merge_tables and logex_apply merge their union on the card from
+    DEVICE_MIN_ROWS rows on: about 2^21 rows here, equal to the CPU."""
+    from fastk_tpu_torch.algebra import logex_apply
+    from fastk_tpu_torch.ops import tables
+    from fastk_tpu_torch.tools.fastmerge import merge_tables
+
+    shared = _random_table(1 << 18, k, 100).packed
+    tabs = [_random_table(1 << 20, k, s, shared) for s in (1, 2)]
+    assert sum(len(t) for t in tabs) >= 2 * tables.DEVICE_MIN_ROWS
+    for spec in (None, (2, 3)):
+        got = merge_tables(tabs, spec, device="cuda")
+        want = merge_tables(tabs, spec, device="cpu")
+        assert np.array_equal(got.packed, want.packed)
+        assert np.array_equal(got.counts, want.counts)
+    shapes = [("U", "A|+B"), ("I", "A&.B"), ("D", "A-B"), ("X", "A^B"),
+              ("F", "(A&+B)[10-3000]{20-80}"), ("N", "#A|+#B")]
+    got = logex_apply(shapes, tabs, (1, 100), device="cuda")
+    want = logex_apply(shapes, tabs, (1, 100), device="cpu")
+    for (n, t, h), (_, tw, hw) in zip(got, want):
+        assert np.array_equal(t.packed, tw.packed), n
+        assert np.array_equal(t.counts, tw.counts), n
+        assert h == hw, n
+    assert len(got[1][1]) == len(shared)

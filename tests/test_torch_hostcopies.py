@@ -213,3 +213,96 @@ def test_native_writer_add_matches_jax(kb):
     assert got is not None
     assert np.array_equal(got, want) and np.array_equal(h2t, h2j)
     assert h2t.sum() == 5000
+
+
+# --- the copies of this slice: twindow, onecode, algebra and the tools ------
+
+import io as _io
+import re
+import time
+
+import fastk_tpu.formats.onecode as jone
+import fastk_tpu.formats.twindow as jtw
+import fastk_tpu_torch.formats.onecode as tone
+import fastk_tpu_torch.formats.twindow as ttw
+
+# modules copied whole, their imports (lazy ones too) pointed at the port
+WHOLE_COPIES = ["formats/twindow.py", "formats/onecode.py", "formats/hist.py",
+                "formats/ktab.py", "formats/prof.py", "formats/paths.py",
+                "tools/_cli.py", "_version.py"] + [
+    f"tools/{t}.py" for t in ("logex", "vennex", "histex", "tabex", "profex",
+                              "haplex", "homex", "symmex", "fastrm",
+                              "fastxfer", "fastcp", "fastmv", "fastcat")]
+
+
+@pytest.mark.parametrize("rel", WHOLE_COPIES)
+def test_whole_copy_differs_only_in_its_imports(rel):
+    with open(os.path.join(REPO, "fastk_tpu", rel)) as f:
+        want = f.read()
+    want = re.sub(r"\bfastk_tpu\.", "fastk_tpu_torch.", want)
+    want = want.replace("from fastk_tpu import", "from fastk_tpu_torch import")
+    with open(os.path.join(REPO, "fastk_tpu_torch", rel)) as f:
+        assert f.read() == want
+
+
+KTABS = [os.path.join(GOLDEN, "small_k40", "small"),
+         os.path.join(GOLDEN, "small2_k40", "small2"),
+         os.path.join(GOLDEN, "small_k40_t3", "small")]
+
+
+@pytest.mark.parametrize("window,bounds", [(500, (None, None)),
+                                          (1 << 20, (None, None)),
+                                          (333, (7000, 30000))])
+@pytest.mark.parametrize("use_native", [True, False])
+def test_twindow_matches_jax(monkeypatch, window, bounds, use_native):
+    if not use_native:
+        monkeypatch.setattr(tnative, "load", lambda: None)
+        monkeypatch.setattr(jnative, "load", lambda: None)
+    ts = [tktab.KmerStream(p) for p in KTABS]
+    js = [jktab.KmerStream(p) for p in KTABS]
+    kb = ts[0].kbyte
+    lo_key, hi_key = (None if b is None else ttw.key_at(ts[0], b)
+                      for b in bounds)
+    if bounds[0] is not None:
+        assert lo_key == jtw.key_at(js[0], bounds[0])
+    got = list(ttw.stream_windows(ts, window, lo_key, hi_key))
+    want = list(jtw.stream_windows(js, window, lo_key, hi_key))
+    assert len(got) == len(want) > (1 if window < 1000 else 0)
+    for g, w in zip(got, want):
+        for (gp, gc), (wp, wc) in zip(g, w):
+            assert np.array_equal(gp, wp) and np.array_equal(gc, wc)
+        gu, gv = ttw.window_union(g, kb)
+        wu, wv = jtw.window_union(w, kb)
+        assert np.array_equal(gu, wu)
+        assert all(np.array_equal(a, b) for a, b in zip(gv, wv))
+        gs = ttw.window_sum(g, kb)
+        ws = jtw.window_sum(w, kb)
+        assert np.array_equal(gs[0], ws[0]) and np.array_equal(gs[1], ws[1])
+
+
+@pytest.mark.parametrize("binary", [True, False])
+def test_onecode_writers_match_jax(monkeypatch, binary):
+    monkeypatch.setattr(time, "strftime", lambda *a: "2026-01-01_00:00:00")
+    base = os.path.join(GOLDEN, "small_k40", "small")
+    tiny = os.path.join(GOLDEN, "tiny_k12_t1", "tiny")
+    outs = {}
+    for name, one, hist, ktab, prof in (
+            ("port", tone, thist, tktab, tprof),
+            ("jax", jone, jhist, jktab, jprof)):
+        h = hist.read_histogram(base)
+        pi = prof.ProfileIndex(base)
+        res = []
+        for write in (
+                lambda out: one.write_khist(h.counts[:40], "small.hist", 1,
+                                            40, "histex -1", out, binary),
+                lambda out: one.write_kmr(ktab.KmerStream(tiny), 2,
+                                          "tabex -1", out, binary),
+                lambda out: one.write_prf(
+                    (pi.fetch(p) for p in range(pi.nreads)), "profex -1",
+                    out, binary)):
+            out = _io.BytesIO() if binary else _io.StringIO()
+            write(out)
+            res.append(out.getvalue())
+        outs[name] = res
+    assert outs["port"] == outs["jax"]
+    assert all(len(x) > 20 for x in outs["port"])
