@@ -54,7 +54,15 @@ Phases, one line each; any failure raises and the script exits non-zero:
     on the card, equal to the CPU and to the native fastmerge and logex,
     with the union's times; vennex, histex, tabex, profex, haplex, homex,
     symmex, fastcp, fastmv and fastrm, each checked against the port's
-    readers; a host launcher's start-up, and no host tool loading torch.
+    readers; a host launcher's start-up, and no host tool loading torch;
+14. the multi-device library (``parallel/``) in an NCCL world of one:
+    sharded_count on the phase-4 batch equal to count_batch, with its
+    run_hist launch; count_files_mesh -t3 -p on the phase-5 input
+    byte-identical to phase 10, with its phase times; the D = 4 device steps
+    (route, exchange as a block transpose, owner count, counts back) on one
+    card equal to count_batch, each timed; relative_profiles_sharded equal
+    to phase 7's -p:<table> profiles; and -k40 -t3 -p -M8 on the phase-4
+    input run out of core under 8e9 B of device memory.
 
 Then one JSON line describing each kernel, and as the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
@@ -849,6 +857,273 @@ def table_tools_phase(tmp: str, fasta: str, prof: str) -> None:
           f"[{_smi()}]", flush=True)
 
 
+def _timed_ms(fn):
+    """(fn(), its milliseconds on the card between two CUDA events)."""
+    import torch
+
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    b.synchronize()
+    return out, a.elapsed_time(b)
+
+
+def _valid_segments(res) -> tuple:
+    """(words uint32 [n, W], counts) of a segmented count's valid
+    segments, on the host."""
+    from fastk_tpu_torch.convert import words_to_numpy
+
+    ns = int(res["nseg"])
+    v = res["seg_valid"][:ns]
+    return (np.stack(words_to_numpy(w[:ns][v] for w in res["seg_words"]),
+                     axis=1), res["seg_counts"][:ns][v].cpu().numpy())
+
+
+def multi_device_phase(tmp: str, fasta: str, fasta5: str, prof: str,
+                       ooc_base: str, ooc_wall: float) -> int:
+    """Phase 14: the multi-device library (parallel/) on the card.
+
+    a. an NCCL world of one (a FileStore, cuda:0): sharded_count on the
+       phase-4 batch equal to count_batch, and count_files_mesh on the
+       phase-5 input with -k40 -t3 -p at the CLI's -M1 plan, byte-identical
+       to `ooc_base`, phase 10's out-of-core file-sets;
+    b. the D > 1 device steps for D = 4 shards of the phase-4 batch on one
+       card, the all_to_all done as the block transpose it computes, equal
+       to count_batch (NCCL refuses two ranks on one card);
+    c. relative_profiles_sharded in that world against `prof`'s -t1 table,
+       equal to its profiles (the single-card -p:<table> run's);
+    e. -k40 -t3 -p -M8 on the phase-4 input through the CLI: out of core,
+       its device peak under 8e9 B, byte-identical to the fused in-core run,
+       whose peak a position is printed (the CLI's FUSED_BYTES).
+
+    Returns run_hist's launches in a."""
+    import datetime
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    from fastk_tpu_torch.formats.hist import write_histogram
+    from fastk_tpu_torch.formats.ktab import read_ktab
+    from fastk_tpu_torch.io.reader import batched_reads
+    from fastk_tpu_torch.ops.count import (
+        count_batch,
+        positions_inverse,
+        unique_batch_inst,
+    )
+    from fastk_tpu_torch.ops.histker import run_hist
+    from fastk_tpu_torch.ops.kmers import canonical_kmers, nwords, pad_needed
+    from fastk_tpu_torch.ops.pack import device_codes
+    from fastk_tpu_torch.parallel import dist as pdist
+    from fastk_tpu_torch.parallel.host import (
+        relative_profiles_sharded,
+        sharded_count,
+    )
+    from fastk_tpu_torch.parallel.meshooc import count_files_mesh
+    from fastk_tpu_torch.pipeline.count import _pad_codes, _round_size
+    from fastk_tpu_torch.tools import fastk as cli
+
+    dev = torch.device("cuda")
+    t14 = time.perf_counter()
+    (batch,) = [b for b, _ in batched_reads([fasta], 256 << 20)]
+    size = _round_size(len(batch.codes), K)
+    codes = _pad_codes(batch, K, size)
+
+    # 14a: the library in an NCCL world of one
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(os.path.join(tmp, "pg14.store"), 1),
+        rank=0, world_size=1, timeout=datetime.timedelta(seconds=600))
+    try:
+        mesh = pdist.make_mesh(device="cuda")
+        if mesh.group is None or dist.get_backend(mesh.group) != "nccl":
+            raise AssertionError("phase 14a: the mesh is not an NCCL world")
+        run_hist.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        words, counts, hist_arr, over, pos = sharded_count(
+            batch.codes, K, mesh, want_positions=True)
+        sc_s = time.perf_counter() - t0
+        sc_launches = run_hist.launches
+        sort14 = os.path.join(tmp, "sort14")
+        os.mkdir(sort14)
+        est5 = os.path.getsize(fasta5)
+        _parts, part_cap = cli._ooc_plan(est5, 1, True,
+                                         cli._device_budget(dev))
+        ppc = max(1, min(256, -(-est5 // part_cap)))  # as _run_mesh plans
+        t0 = time.perf_counter()
+        out14 = count_files_mesh(
+            [fasta5], K, mesh=mesh, table_min=3, profiles=True,
+            batch_bases=cli._batch_bases({"M": 1}), sort_path=sort14,
+            parts_per_chip=ppc, part_cap=part_cap, out_base=f"{tmp}/m14",
+            out_nparts=4, slice_positions=cli._slice_positions(1))
+        mesh_s = time.perf_counter() - t0
+        launches = run_hist.launches
+        write_histogram(f"{tmp}/m14", out14.hist)
+        phase_s = out14.mesh_stats["phase_s"]
+
+        cb = count_batch(device_codes(codes, dev), K, size, True, True)
+        want_w, want_c = _valid_segments(cb)
+        if not (sc_launches == 1 and np.array_equal(words, want_w)
+                and np.array_equal(counts, want_c)
+                and np.array_equal(hist_arr, cb["hist"].cpu().numpy())
+                and over == int(cb["overflow"])
+                and np.array_equal(pos, cb["pos_counts"][: len(pos)]
+                                   .cpu().numpy())):
+            raise AssertionError(f"phase 14a: sharded_count differs from "
+                                 f"count_batch ({sc_launches} launches)")
+        if file_set(tmp, "m14") != file_set(tmp, ooc_base) or os.listdir(
+                sort14):
+            raise AssertionError("phase 14a: count_files_mesh differs from "
+                                 "phase 10's out-of-core file-sets, or "
+                                 "left spills")
+
+        # 14c: -p:<table> through the multi-device library
+        t0 = time.perf_counter()
+        relative_profiles_sharded([fasta], read_ktab(prof), mesh,
+                                  batch_bases=cli._batch_bases({"M": 12}),
+                                  out_base=f"{tmp}/r14", out_nparts=4)
+        rel_s = time.perf_counter() - t0
+        if file_set(tmp, "r14", (".prof", ".pidx")) != file_set(
+                tmp, os.path.basename(prof), (".prof", ".pidx")):
+            raise AssertionError("phase 14c: relative_profiles_sharded "
+                                 "differs from the -p:<table> profiles")
+    finally:
+        dist.destroy_process_group()
+    del words, counts, pos, out14
+    print(f"phase 14a NCCL world of one: sharded_count on the phase-4 batch "
+          f"{sc_s:.2f} s, equal to count_batch (table of {len(want_c)} "
+          f"entries, histogram, pos_counts), run_hist launches "
+          f"{sc_launches}; count_files_mesh -k40 -t3 -p on the phase-5 "
+          f"input at the -M1 plan ({ppc} parts) {mesh_s:.2f} s (phases "
+          f"{phase_s[0]:.2f}, {phase_s[1]:.2f}, {phase_s[2]:.2f} s) against "
+          f"phase 10's out-of-core CLI {ooc_wall:.2f} s, byte-identical; "
+          f"run_hist launches in 14a {launches}; 14c "
+          f"relative_profiles_sharded {rel_s:.2f} s, equal to -p:<table> "
+          f"[{_smi()}]", flush=True)
+
+    # 14b: the D = 4 device steps on one card, run twice, the second timed
+    D, W, halo = 4, nwords(K), pad_needed(K)
+    shard = size // D
+    cap = int(shard // D * 1.8)
+    spl = torch.from_numpy(pdist.splitters_from_prefix_hist(
+        pdist.prefix_histogram(device_codes(codes, dev), K, size, 10)
+        .cpu().numpy(), D).astype(np.int64)).to(dev)
+    for _ in range(2):
+        ms = dict(route=0.0, exchange=0.0, count=0.0, back=0.0)
+        routes, sends = [], []
+        for d in range(D):
+            row = device_codes(codes[d * shard: (d + 1) * shard + halo], dev)
+
+            def route():
+                words, invalid = canonical_kmers(row, K, shard)
+                return pdist._route_chip(
+                    words, invalid,
+                    torch.arange(shard, dtype=torch.int32, device=dev), spl,
+                    D, cap, shard)
+
+            r, t = _timed_ms(route)
+            if int(r[2]):
+                raise AssertionError(f"phase 14b: shard {d} overflowed its "
+                                     f"route by {int(r[2])} records")
+            ms["route"] += t
+            sends.append(torch.stack([*r[0], r[1]], dim=2))
+            routes.append((r[1], r[3]))
+            del r, row
+        recv, ms["exchange"] = _timed_ms(
+            lambda: torch.stack(sends).transpose(0, 1).contiguous())
+        del sends
+        segs, hist4, back = [], 0, []
+        for c in range(D):
+            lanes = recv[c].reshape(D * cap, W + 1)
+            res, t = _timed_ms(lambda: pdist._count_received(
+                tuple(lanes[:, j] for j in range(W)), lanes[:, W], D * cap,
+                True))
+            ms["count"] += t
+            segs.append(_valid_segments(res))
+            hist4 = hist4 + res["hist"]
+            back.append(res["rec_counts"].view(D, cap))
+            del res, lanes
+        del recv
+
+        def inverse():
+            got_back = torch.stack(back).transpose(0, 1).contiguous()
+            return torch.cat([positions_inverse(
+                orig, pdist._slot_counts_to_routed(
+                    got_back[d].reshape(-1), valid.reshape(-1), shard))
+                for d, (valid, orig) in enumerate(routes)])
+
+        pos4, ms["back"] = _timed_ms(inverse)
+        del back, routes
+    if not (np.array_equal(np.concatenate([w for w, _ in segs]), want_w)
+            and np.array_equal(np.concatenate([c for _, c in segs]), want_c)
+            and torch.equal(hist4, cb["hist"])
+            and torch.equal(pos4.to(torch.int16), cb["pos_counts"])):
+        raise AssertionError("phase 14b: the D = 4 steps differ from "
+                             "count_batch")
+    print(f"phase 14b D = 4 device steps on one card, shards of 2^"
+          f"{shard.bit_length() - 1} positions, cap {cap}: canonical_kmers "
+          f"+ _route_chip {ms['route']:.3f} ms for the 4 shards, the "
+          f"exchange as a block transpose {ms['exchange']:.3f} ms, "
+          f"_count_received {ms['count']:.3f} ms for the 4 owners, counts "
+          f"back + _slot_counts_to_routed + positions_inverse "
+          f"{ms['back']:.3f} ms (CUDA events, the second of two runs); "
+          f"equal to count_batch; the NCCL all_to_all at D > 1 is not run "
+          f"on this one-card machine", flush=True)
+    del cb, pos4, hist4, segs, want_w, want_c
+
+    # 14e: F6, the -M bound of a one-batch -p job
+    est4 = os.path.getsize(fasta)
+    peaks = {}
+    logs = {}
+    for name, flags in (("f12", []), ("f8", ["-M8"])):
+        sort = os.path.join(tmp, f"sort_{name}")
+        os.mkdir(sort)
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        log = io.StringIO()
+        with redirect_stdout(log), redirect_stderr(log):
+            rc = cli.main(["-k40", "-t3", "-p", "-v", *flags, f"-P{sort}",
+                           f"-N{tmp}/{name}", fasta])
+        peaks[name] = (torch.cuda.max_memory_allocated(), base)
+        logs[name] = log.getvalue()
+        if rc != 0 or os.listdir(sort):
+            raise AssertionError(f"phase 14e {flags}: rc {rc}; log:\n"
+                                 f"{logs[name][-3000:]}")
+    plan8 = [ln.strip() for ln in logs["f8"].splitlines()
+             if "measured dedup ratio" in ln or "out-of-core" in ln
+             or "planning" in ln]
+    if ("out-of-core:" not in logs["f8"] or "out-of-core:" in logs["f12"]
+            or peaks["f8"][0] >= 8e9
+            or file_set(tmp, "f8") != file_set(tmp, "f12")):
+        raise AssertionError(f"phase 14e: -M8 peak {peaks['f8'][0]} B, "
+                             f"plan {plan8}")
+    fused_b = (peaks["f12"][0] - peaks["f12"][1]) / est4
+    # an out-of-core slice's dedup at 2^26 positions, upload included
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    res = unique_batch_inst(device_codes(codes, dev), K, size)
+    torch.cuda.synchronize()
+    slice_b = (torch.cuda.max_memory_allocated() - base) / size
+    del res
+    print(f"phase 14e F6: -k40 -t3 -p -M8 on the phase-4 input ({est4} "
+          f"bytes): plan {plan8}; max_memory_allocated "
+          f"{peaks['f8'][0] / 1e9:.3f} GB (base {peaks['f8'][1] / 1e9:.3f} "
+          f"GB) < 8 GB, file-sets byte-identical to the fused in-core run "
+          f"at -M12, whose peak is {peaks['f12'][0] / 1e9:.3f} GB (base "
+          f"{peaks['f12'][1] / 1e9:.3f} GB) = {fused_b:.1f} B a position "
+          f"(FUSED_BYTES {cli.FUSED_BYTES}); a slice's unique_batch_inst "
+          f"at 2^26 positions {slice_b:.1f} B a position (SLICE_BYTES "
+          f"{cli.SLICE_BYTES}); phase 14 "
+          f"{time.perf_counter() - t14:.1f} s [{_smi()}]", flush=True)
+    return launches
+
+
 def _smi() -> str:
     """The card's name and power limit as nvidia-smi reports them."""
     return subprocess.run(
@@ -1249,6 +1524,7 @@ def main() -> int:
         # phase 7: the -t3 -p and -t1 -p jobs on the phase-4 batch, through
         # the CLI (the fused single-batch path)
         run_hist.launches = 0
+        base7 = torch.cuda.memory_allocated()  # phase 6's tensors
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         rc = fastk_main(["-k40", "-t3", "-p", f"-N{tmp}/p3", fasta])
@@ -1441,12 +1717,15 @@ def main() -> int:
             want10 = (file_set(tmp, "big", exts) if exts
                       else file_set(tmp, "big"))
             log = io.StringIO()
+            base10 = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
             with OocProbe() as probe, redirect_stdout(log), \
                     redirect_stderr(log):
                 rc = fastk_main(["-k40", *flags, "-v", "-M1", f"-P{sort10}",
                                  f"-N{tmp}/{name}", fasta5])
             wall10 = time.perf_counter() - t0
+            peak10 = torch.cuda.max_memory_allocated() - base10
             text = log.getvalue()
             r = probe.report(nb10)
             if (rc != 0 or "out-of-core:" not in text or r["merges"] < 1
@@ -1460,14 +1739,16 @@ def main() -> int:
             if os.listdir(sort10):
                 raise AssertionError(f"phase 10: spills left in {sort10}: "
                                      f"{os.listdir(sort10)}")
-            runs10[name] = (wall10, plan_of(text), r)
-        (wt, (pt, gt, lt), rt), (wp, (pp, gp, lp), rp) = (
+            runs10[name] = (wall10, plan_of(text), r, peak10)
+        (wt, (pt, gt, lt), rt, mt), (wp, (pp, gp, lp), rp, mp) = (
             runs10["o10t"], runs10["o10p"])
         print(f"phase 10 out of core through the CLI at -M1 on the phase-5 "
               f"200 Mbp, {nb10} batches: file-sets byte-identical to the "
-              f"in-core run of phase 8; -t3: CLI {wt:.2f} s, planned {pt} "
+              f"in-core run of phase 8; -t3: CLI {wt:.2f} s, device peak "
+              f"{mt / 1e9:.3f} GB above what was held, planned {pt} "
               f"parts, {gt} merges after consolidation, largest group {lt} "
-              f"records, {ooc_line(rt)}; -t3 -p: CLI {wp:.2f} s, planned "
+              f"records, {ooc_line(rt)}; -t3 -p: CLI {wp:.2f} s, device peak "
+              f"{mp / 1e9:.3f} GB, planned "
               f"{pp} parts, {gp} merges after consolidation, largest group "
               f"{lp} records, {ooc_line(rp)}", flush=True)
 
@@ -1530,8 +1811,9 @@ def main() -> int:
               f"Mbp {peak8 / 1e9:.3f} GB = {peak8 / est5:.1f} B a position "
               f"(ratio {ratio5:.4f}: {peak8 / est5 - ratio5 * unique_b:.1f} "
               f"B a position beside {unique_b:.1f} B a block record); fused "
-              f"-t3 -p CLI at 60 Mbp {peak7 / 1e9:.3f} GB = "
-              f"{peak7 / est4:.1f} B a position; a part merge with "
+              f"-t3 -p CLI at 60 Mbp {peak7 / 1e9:.3f} GB, less the "
+              f"{base7 / 1e9:.3f} GB that phase 6 holds, = "
+              f"{(peak7 - base7) / est4:.1f} B a position; a part merge with "
               f"want_back {back_bytes / 1e9:.3f} GB = "
               f"{back_bytes / back_n:.1f} B a record at {back_n} records, "
               f"{back_ms:.3f} ms on the card",
@@ -1707,15 +1989,20 @@ def main() -> int:
         # phase 13: the table tools and the library union on the card
         table_tools_phase(tmp, fasta5, f"{tmp}/p1")
 
-    print(f"phases 1-13 in {time.perf_counter() - t_start:.1f} s [{_smi()}]",
+        # phase 14: the multi-device library, and -M on a one-batch -p job
+        launches14 = multi_device_phase(tmp, fasta, fasta5, f"{tmp}/p1",
+                                        "o10p", wp)
+
+    print(f"phases 1-14 in {time.perf_counter() - t_start:.1f} s [{_smi()}]",
           flush=True)
 
     print(json.dumps({"kernels": [{
         "name": "run_hist", "route": "cuda",
         "source": "fastk_tpu_torch/csrc/run_hist.cu",
         "replaces": "fastk_tpu/ops/histker.py:72",
-        "launches": launches + launches7 + launches12,
+        "launches": launches + launches7 + launches12 + launches14,
         "launches_per_job": launches,
+        "launches_phase14a": launches14,
         "max_abs_err": max_err,
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None,

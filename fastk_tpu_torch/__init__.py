@@ -19,11 +19,16 @@ Covered so far: the counting job with its ``.hist``, ``.ktab`` (``-t``) and
 ``profex``, ``haplex``, ``homex``, ``symmex``, ``fastrm``, ``fastcp``,
 ``fastmv``), each run as ``python -m fastk_tpu_torch.tools.<name>`` or
 through its launcher in ``bin/``; the library unions
-(``tools.fastmerge.merge_tables``, ``algebra.logex_apply``) on the device.
+(``tools.fastmerge.merge_tables``, ``algebra.logex_apply``) on the device;
+multi-device counting over torch.distributed, one process a card
+(``parallel/``: :func:`fastk_tpu_torch.parallel.host.count_files_sharded`,
+:func:`fastk_tpu_torch.parallel.meshooc.count_files_mesh`, the CLI's
+multi-process mode).
 
 The public names below are those of ``fastk_tpu``. The format codecs load
 eagerly and need only numpy, so the host tools never import torch;
-``count_files`` and ``resolve_device`` load torch at first use. The
+``count_files``, ``count_files_sharded``, ``count_files_mesh`` and
+``resolve_device`` load torch at first use. The
 device is explicit everywhere (default ``"cuda"``); asking for CUDA where
 there is none raises instead of running on the CPU.
 """
@@ -45,9 +50,6 @@ from fastk_tpu_torch.formats.prof import (
     write_prof,
 )
 
-_MULTI_DEVICE = ("count_files_sharded", "count_files_mesh")
-
-
 def __getattr__(name):
     # lazy: the pipeline and the device pull in torch; the codecs above do not
     if name == "count_files":
@@ -58,16 +60,22 @@ def __getattr__(name):
         from fastk_tpu_torch.device import resolve_device
 
         return resolve_device
-    if name in _MULTI_DEVICE:
-        raise AttributeError(
-            f"fastk_tpu_torch.{name} waits for the multi-device slice of "
-            "the port (torch.distributed); it is not ported yet")
+    if name == "count_files_sharded":
+        from fastk_tpu_torch.parallel.host import count_files_sharded
+
+        return count_files_sharded
+    if name == "count_files_mesh":
+        from fastk_tpu_torch.parallel.meshooc import count_files_mesh
+
+        return count_files_mesh
     raise AttributeError(name)
 
 
 __all__ = [
     "__version__",
     "count_files",
+    "count_files_sharded",
+    "count_files_mesh",
     "resolve_device",
     "Histogram",
     "read_histogram",

@@ -289,7 +289,7 @@ def positions_inverse(pos: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
 
 
 def segmented_count(s_words, want_elem_counts: bool = False,
-                    want_hist: bool = False):
+                    want_hist: bool = False, weights=None):
     """Segment statistics over sorted, invalid-folded key words.
 
     Returns dict(seg_words, seg_counts — slot j = j-th segment in key order,
@@ -299,9 +299,17 @@ def segmented_count(s_words, want_elem_counts: bool = False,
     [size] — each sorted record's segment count clipped at 32767, 0 for
     invalid records]). The histogram is the run-length kernel over the
     packed run starts (ops/histker.py run_hist), which waits once for the
-    number of valid records."""
+    number of valid records.
+
+    weights: int32 per-record weights summed per segment instead of run
+    lengths (the receive side of the multi-device exchange of locally
+    deduplicated records, parallel/dist.py). The histogram then bins the
+    clipped segment sums with bincount, as JAX's bincount_by_sort does: run
+    lengths are not the counts."""
+    if want_elem_counts and weights is not None:
+        raise ValueError("elem_counts are run lengths; pass no weights")
     size = s_words[0].numel()
-    seg = segment_reduce(s_words)
+    seg = segment_reduce(s_words, weights=weights)
     slot = torch.arange(size, device=s_words[0].device)
     seg_valid = (slot < seg["nseg"]) & ~is_invalid_key(seg["seg_words"])
     seg_counts = seg["seg_counts"]
@@ -310,7 +318,12 @@ def segmented_count(s_words, want_elem_counts: bool = False,
     out = dict(seg_words=seg["seg_words"], seg_counts=seg_counts,
                seg_valid=seg_valid, nseg=seg["nseg"], overflow=overflow)
     rec_invalid = is_invalid_key(s_words)
-    if want_hist:
+    if want_hist and weights is not None:
+        vals = torch.where(seg_valid, torch.clamp(seg_counts, max=HIST_HIGH),
+                           HIST_HIGH + 1)
+        out["hist"] = torch.bincount(
+            vals, minlength=HIST_HIGH + 2)[: HIST_HIGH + 1]
+    elif want_hist:
         from fastk_tpu_torch.ops.histker import run_hist, start_words
 
         valid_end = size - int(rec_invalid.sum())

@@ -36,9 +36,13 @@ def pack_starts(starts: torch.Tensor) -> torch.Tensor:
 
 def start_words(s_words, valid_end: int) -> torch.Tensor:
     """Sorted key words -> packed run starts, cleared at and after valid_end
-    (the all-ones invalid tail is not a run to bin)."""
+    (the all-ones invalid tail is not a run to bin), padded with cleared
+    bits to a whole word."""
     starts = run_starts(s_words)
     starts[valid_end:] = False
+    pad = -starts.numel() % 32
+    if pad:
+        starts = torch.cat([starts, starts.new_zeros(pad)])
     return pack_starts(starts)
 
 

@@ -92,12 +92,13 @@ def _pad_codes(batch: ReadBatch, k: int, size: int) -> np.ndarray:
     return codes
 
 
-def _code_slices(codes: np.ndarray, k: int):
-    """Yield (offset, size, padded slice) windows of at most
-    MAX_DEVICE_POSITIONS start positions; slice i covers the starts
-    [offset, offset + size) and carries the k-1 halo after them."""
+def _code_slices(codes: np.ndarray, k: int,
+                 max_size: int = MAX_DEVICE_POSITIONS):
+    """Yield (offset, size, padded slice) windows of at most max_size start
+    positions; slice i covers the starts [offset, offset + size) and carries
+    the k-1 halo after them."""
     n = len(codes)
-    size = _round_size(n, k)
+    size = min(_round_size(n, k), max_size)
     pad = pad_needed(k)
     off = 0
     while off < n or off == 0:
@@ -111,11 +112,12 @@ def _code_slices(codes: np.ndarray, k: int):
             break
 
 
-def _packed_slices(codes: np.ndarray, k: int):
+def _packed_slices(codes: np.ndarray, k: int,
+                   max_size: int = MAX_DEVICE_POSITIONS):
     """_code_slices, packed for transfer: yields (off, size, words,
     exceptions, slice length). The packed form is what the profile pass
     keeps of a batch whose instance stream is not on the device."""
-    for off, size, buf in _code_slices(codes, k):
+    for off, size, buf in _code_slices(codes, k, max_size):
         pw, exc = pack_stream_words(buf)
         yield off, size, pw, exc, len(buf)
 
@@ -181,6 +183,11 @@ def _profiles_from_meta(boff: np.ndarray, rlen: np.ndarray,
         else:
             profs.append(pos_counts[o: o + n].astype(np.uint16))
     return profs
+
+
+def _profiles_from_positions(batch: ReadBatch, pos_counts: np.ndarray, k: int
+                             ) -> List[np.ndarray]:
+    return _profiles_from_meta(batch.boff, batch.rlen, pos_counts, k)
 
 
 def _device_table(table: KmerTable, k: int, dev: torch.device):

@@ -54,6 +54,7 @@ from fastk_tpu_torch.ops.kmers import nwords
 from fastk_tpu_torch.ops.pack import fetch_u16, upload_packed
 from fastk_tpu_torch.ops.tables import pad_counted
 from fastk_tpu_torch.pipeline.count import (
+    MAX_DEVICE_POSITIONS,
     CountOutput,
     _later,
     _packed_slices,
@@ -133,6 +134,16 @@ class _Spill:
         the spill files hold."""
         for f in self.files:
             f.flush()
+
+    def truncate(self, nrec: List[int]) -> None:
+        """Roll every part back to an exact record count (a failed mesh
+        round re-runs after truncating its partial spills)."""
+        rb = 4 * (self.W + 1)
+        for p, nr in enumerate(nrec):
+            self.files[p].flush()
+            os.truncate(self.paths[p], nr * rb)
+            self.files[p].seek(nr * rb)
+            self.nrec[p] = nr
 
     def load(self, p: int) -> Tuple[np.ndarray, np.ndarray]:
         self.files[p].flush()
@@ -281,6 +292,7 @@ def count_files_ooc(
     part_cap: int = 1 << 26,
     resume: bool = False,
     est_bases: Optional[int] = None,
+    slice_positions: int = MAX_DEVICE_POSITIONS,
     device="cuda",
 ) -> CountOutput:
     """Bounded-memory counting through `parts` disk buckets (the -M path).
@@ -299,6 +311,9 @@ def count_files_ooc(
     resume: on failure keep the phase-1 spill and a batch-granular manifest;
     a rerun with the same inputs and configuration re-enters phase 1 after
     the last completed batch.
+
+    slice_positions: the most positions of one device slice in phase 1,
+    whose dedup sets the job's device peak (the CLI derives it from -M).
 
     device: where the merges run (default ``"cuda"``; raises without a
     card)."""
@@ -428,7 +443,8 @@ def count_files_ooc(
             if len(metas) - 1 < bdone:
                 del batch  # spilled by the interrupted run
                 continue
-            for off, size, pw, exc, blen in _packed_slices(batch.codes, k):
+            for off, size, pw, exc, blen in _packed_slices(
+                    batch.codes, k, slice_positions):
                 codes = upload_packed(pw, exc, blen, dev)
                 if profiles:
                     res = unique_batch_inst(codes, k, size)

@@ -18,7 +18,10 @@ are the JAX package's, and so is the plan:
   unique) fits both -M and the device's memory; otherwise the first slice's
   measured dedup ratio (uniques / valid positions) decides, and if the
   measured footprint still does not fit, the job runs out of core
-  (``pipeline/outofcore.py``) with its spills under -P;
+  (``pipeline/outofcore.py``) with its spills under -P. A one-batch -p
+  input is charged its fused count's own footprint (FUSED_BYTES), which
+  does not shrink with the ratio; the out-of-core job counts device slices
+  small enough for -M (SLICE_BYTES);
 - an in-core job that was promoted by the measurement and then runs out of
   device memory (torch.cuda.OutOfMemoryError) is redone out of core;
 - -R keeps the out-of-core spill and its manifest when a run fails, and a
@@ -29,8 +32,16 @@ The device's memory is FASTK_TPU_HBM_GB when set, else the card's own (13 GB
 on the CPU, as the JAX CLI assumes). FASTK_TPU_BATCH_BASES caps the batch.
 FASTK_TPU_TRACE=<dir> writes a torch.profiler trace of the run (CUDA
 activity included on the card) as Chrome trace JSON into <dir>. On failure
-the partial file-sets are removed. Multi-host runs (FASTK_TPU_COORD with
-FASTK_TPU_NPROCS > 1) are not ported and stop with an error.
+the partial file-sets are removed.
+
+Multi-process runs: start one process a card with FASTK_TPU_COORD
+(host:port of rank 0), FASTK_TPU_NPROCS (the number of processes) and
+FASTK_TPU_PROC (this one's rank), as for the JAX CLI. The processes join
+one torch.distributed world (NCCL on cards, gloo with device="cpu"), each
+counts its share of the input files and of the keyspace
+(``parallel/meshooc.py``, or ``parallel/host.py``'s relative profiles for
+-p:<table>) and streams its slice file-sets ``<out>.<rank>``; rank 0 then
+writes the histogram and splices the slices into ``<out>`` (fastcat).
 """
 
 from __future__ import annotations
@@ -45,14 +56,20 @@ import time
 from typing import List, Optional
 
 import torch
+import torch.distributed as dist
 
-from fastk_tpu_torch.device import resolve_device
 from fastk_tpu_torch.formats.hist import write_histogram
 from fastk_tpu_torch.formats.ktab import read_ktab
 from fastk_tpu_torch.io.reader import batched_reads
 from fastk_tpu_torch.ops.count import unique_batch
 from fastk_tpu_torch.ops.pack import upload_packed
-from fastk_tpu_torch.pipeline.count import _packed_slices, count_files
+from fastk_tpu_torch.ops.kmers import pad_needed
+from fastk_tpu_torch.parallel.multihost import init_from_env, rank_device
+from fastk_tpu_torch.pipeline.count import (
+    MAX_DEVICE_POSITIONS,
+    _packed_slices,
+    count_files,
+)
 from fastk_tpu_torch.pipeline.outofcore import count_files_ooc
 from fastk_tpu_torch.tools._cli import die, print_number, source_root
 
@@ -61,10 +78,16 @@ from fastk_tpu_torch.tools._cli import die, print_number, source_root
 # the in-core job per record of its per-batch unique blocks (135.5 B at 600
 # Mbp -t3), with -p also per position (68.8 B at 200 Mbp -t3 -p), and one
 # out-of-core part merge with want_back per record, operands included
-# (142.0 B at 4.4e7 records).
+# (142.0 B at 4.4e7 records). From chip_smoke.py phase 14e, the peak less
+# what was allocated before: the fused single-batch -p job (count_batch)
+# per position of its input (141.1 B at 60 Mbp -t3 -p), and a device
+# slice's dedup per slice position, which sets the out-of-core and mesh
+# jobs' phase-1 peak (126.2 B, unique_batch_inst at 2^26 positions, k=40).
 UNIQUE_BYTES = 136
 POSITION_BYTES = 69
 MERGE_BYTES = 142
+FUSED_BYTES = 142
+SLICE_BYTES = 127
 
 USAGE = """Usage: fastk [-k<int(40)>] [-t[<int(1)>]] [-p[:<table>[.ktab]]] [-c] [-bc<int>]
              [-v] [-N<path_name>] [-P<dir($TMPDIR)>] [-M<int(12)>] [-T<int(4)>]
@@ -240,12 +263,25 @@ def _device_budget(dev: torch.device) -> float:
     return 13e9
 
 
-def _incore_bytes(est_bases: int, ratio: float, profiles: bool) -> float:
+def _incore_bytes(est_bases: int, ratio: float, profiles: bool,
+                  fused: bool = False) -> float:
     """The in-core job's device footprint at a dedup ratio of `ratio`
-    uniques per position (1 is the worst case)."""
+    uniques per position (1 is the worst case). fused: the input is one
+    batch with -p, which count_files counts in one fused count_batch
+    whatever the ratio."""
+    if fused:
+        return est_bases * FUSED_BYTES
     if profiles:
         return est_bases * (POSITION_BYTES + ratio * UNIQUE_BYTES)
     return est_bases * ratio * UNIQUE_BYTES
+
+
+def _slice_positions(M: float) -> int:
+    """Positions of an out-of-core or mesh job's device slice under -M: the
+    largest power of two whose dedup (SLICE_BYTES a position) fits, within
+    [2^20, MAX_DEVICE_POSITIONS]."""
+    fit = max(1 << 20, int(M * 1e9) // SLICE_BYTES)
+    return min(MAX_DEVICE_POSITIONS, 1 << (fit.bit_length() - 1))
 
 
 def _ooc_plan(est_bases: int, M: float, profiles: bool, hbm: float) -> tuple:
@@ -262,18 +298,22 @@ def _ooc_plan(est_bases: int, M: float, profiles: bool, hbm: float) -> tuple:
     return max(2, math.ceil(est_bases / part_cap)), part_cap
 
 
-def _measure_dedup(inputs, k, batch_bases, hc, bc, dev) -> Optional[float]:
+def _measure_dedup(inputs, k, batch_bases, hc, bc, dev,
+                   max_size: int = MAX_DEVICE_POSITIONS) -> Optional[float]:
     """The first slice's dedup ratio (uniques / valid positions), counted
     on the device: one bounded batch read, packed, uploaded and put through
-    unique_batch. None for an empty input or one without a valid position;
-    any other failure raises."""
+    unique_batch, in a slice of at most max_size positions (the CLI passes
+    its -M slice, so that the measurement keeps to -M too). None for an
+    empty input or one without a valid position; any other failure
+    raises."""
     gen = batched_reads(list(inputs), min(batch_bases, 64 << 20), hc=hc,
                         bc=bc)
     first = next(gen, None)
     gen.close()
     if first is None:
         return None
-    off, size, pw, exc, blen = next(_packed_slices(first[0].codes, k))
+    off, size, pw, exc, blen = next(_packed_slices(first[0].codes, k,
+                                                   max_size))
     res = unique_batch(upload_packed(pw, exc, blen, dev), k, size)
     nval = int(res["nvalid"])
     if nval <= 0:
@@ -286,31 +326,35 @@ def main(argv=None, device="cuda") -> int:
     for p in cfg["inputs"]:
         if not os.path.exists(p):
             die(f"fastk: cannot open {p}")
-    if (os.environ.get("FASTK_TPU_COORD")
-            and int(os.environ.get("FASTK_TPU_NPROCS", "1")) > 1):
-        die("fastk: multi-host runs are not yet ported")
     out_base = cfg["N"] or source_root(cfg["inputs"][0])
-    dev = resolve_device(device)
-    trace_dir = os.environ.get("FASTK_TPU_TRACE")
-    if not trace_dir:
-        return _run(cfg, out_base, dev)
-    from torch.profiler import ProfilerActivity, profile
-
-    acts = [ProfilerActivity.CPU]
-    if dev.type == "cuda":
-        acts.append(ProfilerActivity.CUDA)
-    prof = profile(activities=acts)
-    prof.start()
+    joined = dist.is_initialized()
+    pid, nprocs = init_from_env(device)
+    dev = rank_device(device, pid)
     try:
-        return _run(cfg, out_base, dev)
+        trace_dir = os.environ.get("FASTK_TPU_TRACE")
+        if not trace_dir:
+            return _run(cfg, out_base, dev, pid, nprocs)
+        from torch.profiler import ProfilerActivity, profile
+
+        acts = [ProfilerActivity.CPU]
+        if dev.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        prof = profile(activities=acts)
+        prof.start()
+        try:
+            return _run(cfg, out_base, dev, pid, nprocs)
+        finally:
+            prof.stop()
+            os.makedirs(trace_dir, exist_ok=True)
+            prof.export_chrome_trace(
+                os.path.join(trace_dir, f"fastk.{os.getpid()}.trace.json"))
     finally:
-        prof.stop()
-        os.makedirs(trace_dir, exist_ok=True)
-        prof.export_chrome_trace(
-            os.path.join(trace_dir, f"fastk.{os.getpid()}.trace.json"))
+        if not joined and dist.is_initialized():
+            dist.destroy_process_group()  # the world this call joined
 
 
-def _run(cfg, out_base: str, dev: torch.device) -> int:
+def _run(cfg, out_base: str, dev: torch.device, pid: int = 0,
+         nprocs: int = 1) -> int:
     timer = _Timer()
     rel = None
     if cfg["ptable"]:
@@ -337,11 +381,23 @@ def _run(cfg, out_base: str, dev: torch.device) -> int:
     hbm = _device_budget(dev)
     parts, part_cap = _ooc_plan(est_bases, cfg["M"], cfg["p"], hbm)
     nparts = max(1, cfg["T"])
+    slice_positions = _slice_positions(cfg["M"])
+    if nprocs > 1:
+        try:
+            return _run_mesh(cfg, out_base, rel, batch_bases, nparts,
+                             part_cap, est_bases, slice_positions, pid,
+                             nprocs, dev)
+        except BaseException:
+            _clean_outputs(out_base if pid == 0 else f"{out_base}.{pid}")
+            raise
     ooc_kw = dict(est_bases=est_bases, sort_path=cfg["P"],
                   table_min=cfg["t"], profiles=cfg["p"], hc=cfg["c"],
                   bc=cfg["bc"], batch_bases=batch_bases, verbose=cfg["v"],
                   out_base=out_base, out_nparts=nparts, part_cap=part_cap,
-                  device=dev)
+                  slice_positions=slice_positions, device=dev)
+    # one batch with -p runs as one fused count_batch (pipeline/count.py)
+    fused = (cfg["p"] and rel is None and est_bases <= batch_bases
+             and est_bases + pad_needed(cfg["k"]) <= MAX_DEVICE_POSITIONS)
 
     try:
         measured_incore = False
@@ -351,9 +407,9 @@ def _run(cfg, out_base: str, dev: torch.device) -> int:
             # keeps the worst-case plan: its manifest is the out-of-core
             # path's
             ratio = _measure_dedup(cfg["inputs"], cfg["k"], batch_bases,
-                                   cfg["c"], cfg["bc"], dev)
+                                   cfg["c"], cfg["bc"], dev, slice_positions)
             if ratio is not None:
-                in_bytes = _incore_bytes(est_bases, ratio, cfg["p"])
+                in_bytes = _incore_bytes(est_bases, ratio, cfg["p"], fused)
                 if in_bytes <= min(hbm, cfg["M"] * 1e9):
                     if cfg["v"]:
                         print(f"  measured dedup ratio {ratio:.3f}: "
@@ -416,6 +472,67 @@ def _run(cfg, out_base: str, dev: torch.device) -> int:
     if cfg["v"]:
         timer.phase()
         timer.total()
+    return 0
+
+
+def _run_mesh(cfg, out_base, rel, batch_bases, nparts, part_cap, est_bases,
+              slice_positions, pid, nprocs, dev) -> int:
+    """The multi-process job body: every rank runs the same lockstep mesh
+    program over its file shard and streams `<out>.<rank>` slice file-sets;
+    rank 0 splices them (fastcat) into `<out>` and writes the histogram."""
+    from fastk_tpu_torch.parallel.meshooc import count_files_mesh, default_mesh
+    from fastk_tpu_torch.parallel.multihost import _barrier
+
+    mesh = default_mesh(dev)
+    if cfg["v"] and pid == 0:
+        print(f"  multi-process: {nprocs} processes, one {dev.type} device "
+              "each", file=sys.stderr)
+    if rel is not None:
+        from fastk_tpu_torch.parallel.host import relative_profiles_sharded
+
+        out = relative_profiles_sharded(
+            cfg["inputs"], rel, mesh, batch_bases=batch_bases,
+            verbose=cfg["v"], out_base=out_base, out_nparts=nparts)
+    else:
+        # per-rank keyspace parts sized so that no phase-2 merge load
+        # exceeds the -M-derived part_cap even at a worst-case spill
+        ppc = max(1, min(256, -(-est_bases // (nprocs * part_cap))))
+        out = count_files_mesh(
+            cfg["inputs"], cfg["k"], mesh=mesh, table_min=cfg["t"],
+            profiles=cfg["p"], batch_bases=batch_bases, sort_path=cfg["P"],
+            out_base=out_base, out_nparts=nparts, part_cap=part_cap,
+            parts_per_chip=ppc, hc=cfg["c"], bc=cfg["bc"],
+            verbose=cfg["v"], resume=cfg["R"],
+            slice_positions=slice_positions)
+    _barrier()
+    if pid == 0:
+        from fastk_tpu_torch.tools.fastcat import (
+            cat_profiles_spliced,
+            cat_tables_spliced,
+            cat_tables_streamed,
+        )
+        from fastk_tpu_torch.tools.fastrm import remove_set
+
+        slices = [f"{out_base}.{q}" for q in range(nprocs)]
+        if rel is None:
+            write_histogram(out_base, out.hist)
+            if cfg["t"] is not None:
+                # destructive splice: O(1) hardlink of slice parts
+                if not cat_tables_spliced(slices, out_base, keep=False):
+                    cat_tables_streamed(slices, out_base, nparts)
+        if cfg["p"]:
+            cat_profiles_spliced(slices, out_base, keep=False)
+        for s in slices:
+            for ext in (".ktab", ".prof"):
+                try:
+                    remove_set(s + ext, force=True)
+                except Exception:
+                    pass
+        if cfg["v"]:
+            print(f"  spliced {nprocs} rank slices into {out_base}",
+                  file=sys.stderr)
+    # ranks leave together, so slice files outlive every reader
+    _barrier()
     return 0
 
 

@@ -1,7 +1,8 @@
 """The port on a CUDA card: the run-length kernel against its plain
 version, and the device paths (histogram, uniques, the fused count, the
 table compaction, the profile joins, the merge with want_back and the
-out-of-core job) on CUDA against the same calls on the CPU.
+out-of-core job) on CUDA against the same calls on the CPU; the CLI's -M
+bound on a one-batch -p job; sharded_count in an NCCL world of one.
 
 Imports no JAX, so that it runs on a machine with a card and without JAX:
 
@@ -263,3 +264,211 @@ def test_library_unions_match_cpu(cuda_device, k):
         assert np.array_equal(t.counts, tw.counts), n
         assert h == hw, n
     assert len(got[1][1]) == len(shared)
+
+
+def test_one_batch_p_job_stays_under_M(cuda_device, tmp_path):
+    """A one-batch -p input (8 Mbp, 2^23 positions) whose fused count would
+    pass -M1 while the multi-batch charge at its measured ratio fits: the
+    CLI runs it out of core, the card's peak stays under 1e9 B, and the
+    file-sets equal the in-core run's."""
+    import contextlib
+    import io
+
+    from fastk_tpu_torch.tools import fastk
+
+    path = str(tmp_path / "reads.fasta")
+    chip_smoke.write_hifi_fasta(path, 160_000, 400, seed=14)
+    est = os.path.getsize(path)
+    assert est * fastk.FUSED_BYTES > 1e9 > est * (
+        fastk.POSITION_BYTES + 0.25 * fastk.UNIQUE_BYTES)
+    for d in ("m1", "m12", "sort"):
+        os.mkdir(tmp_path / d)
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    log = io.StringIO()
+    with contextlib.redirect_stderr(log):
+        assert fastk.main(["-k40", "-t3", "-p", "-M1", "-v",
+                           f"-P{tmp_path}/sort", f"-N{tmp_path}/m1/o",
+                           path]) == 0
+    peak = torch.cuda.max_memory_allocated() - base
+    assert "out-of-core:" in log.getvalue(), log.getvalue()
+    assert peak < 1e9, peak
+    assert fastk.main(["-k40", "-t3", "-p", f"-N{tmp_path}/m12/o",
+                       path]) == 0
+    assert (chip_smoke.file_set(str(tmp_path / "m1"), "o")
+            == chip_smoke.file_set(str(tmp_path / "m12"), "o"))
+
+
+def test_sharded_count_world_one_nccl(cuda_device, tmp_path):
+    """sharded_count in an NCCL world of one (the driver's machine has one
+    card) equals count_batch: table, histogram and pos_counts, with one
+    run_hist launch."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from fastk_tpu_torch.parallel.dist import make_mesh
+    from fastk_tpu_torch.parallel.host import sharded_count
+
+    k, size = 40, 1 << 18
+    c = _codes(k, size, 5)
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=60))
+    try:
+        mesh = make_mesh(device="cuda")
+        assert mesh.group is not None and mesh.size == 1
+        before = histker.run_hist.launches
+        words, counts, hist, over, pos = sharded_count(
+            c[:size], k, mesh, want_positions=True)
+        assert histker.run_hist.launches == before + 1
+    finally:
+        dist.destroy_process_group()
+    cb = count.count_batch(codes_from_numpy(c, cuda_device), k, size, True,
+                           True)
+    ns = int(cb["nseg"])
+    v = cb["seg_valid"][:ns]
+    want = np.stack(words_to_numpy(w[:ns][v] for w in cb["seg_words"]),
+                    axis=1)
+    assert np.array_equal(words, want)
+    assert np.array_equal(counts, cb["seg_counts"][:ns][v].cpu().numpy())
+    assert np.array_equal(hist, cb["hist"].cpu().numpy())
+    assert over == int(cb["overflow"])
+    assert np.array_equal(pos, cb["pos_counts"].cpu().numpy())
+
+
+def _nccl_world(n_min: int = 2) -> int:
+    n = torch.cuda.device_count()
+    if n < n_min:
+        pytest.skip(f"needs {n_min} or more cards: NCCL refuses two ranks "
+                    "on one card")
+    return n
+
+
+def test_nccl_world_sharded_count(cuda_device, tmp_path):
+    """sharded_count in an NCCL world of one rank a card (the all_to_all
+    and all_reduce on the cards) equals the same task in this process, a
+    world of one on the CPU: words, counts, histogram, overflow and
+    pos_counts at four k, with and without positions, and the skewed
+    stream that needs the rebalance ladder."""
+    import torch_dist_worker as tw
+
+    world = _nccl_world()
+    rng = np.random.default_rng(0)
+    codes = rng.integers(0, 4, 20000).astype(np.uint8)
+    codes[::997] = 4
+    codes[10000:13000] = codes[:3000]
+    train = rng.integers(0, 4, 4096).astype(np.uint8)
+    skew = np.concatenate([rng.choice(np.array([0, 1], np.uint8), 16384,
+                                      p=[0.8, 0.2]),
+                           np.full(64, 4, np.uint8)])
+    args = dict(codes=codes.tolist(), ks=[17, 40, 65, 160],
+                train=train.tolist(), skew=skew.tolist())
+    want = tw.TASKS["sharded_count"](args)
+    got = tw.run_world("sharded_count", world, tmp_path,
+                       dict(args, device="cuda"))
+    for res in got:
+        for key, w in want.items():
+            if not isinstance(key, tuple):
+                continue
+            g = res[key]
+            for a, b in zip(g[:3], w[:3]):
+                assert np.array_equal(a, b), key
+            assert g[3] == w[3]
+            assert (g[4] is None) == (w[4] is None)
+            if w[4] is not None:
+                assert np.array_equal(g[4], w[4]), key
+        assert "bucket capacity exceeded" in res["no_rebalance"]
+        assert res["retrained"]
+        for a, b in zip(res["rebalanced"][:3], want["rebalanced"][:3]):
+            assert np.array_equal(a, b)
+
+
+def test_nccl_world_mesh_relative_and_cli(cuda_device, tmp_path):
+    """count_files_mesh (several rounds with profiles, with the phase-3 row
+    exchange; the pre_dedup recovery), relative_profiles_sharded and the
+    CLI's multi-process mode in an NCCL world of one rank a card, against
+    the single-card port over the same global read order: histograms,
+    tables and profiles equal."""
+    import torch_dist_worker as tw
+
+    from fastk_tpu_torch.formats.ktab import read_ktab, write_ktab
+    from fastk_tpu_torch.formats.prof import read_profiles
+    from fastk_tpu_torch.parallel.multihost import shard_files
+    from fastk_tpu_torch.pipeline.count import count_files
+    from fastk_tpu_torch.tools import fastk
+
+    world = _nccl_world()
+    paths = []
+    for i in range(world + 1):
+        p = str(tmp_path / f"r{i}.fasta")
+        chip_smoke.write_hifi_fasta(p, 20_000, 10 + 3 * i, seed=20 + i,
+                                    read_len=1500)
+        paths.append(p)
+    one = str(tmp_path / "one.fasta")
+    with open(one, "w") as f:
+        # one k-mer: 326 x 184 records from a shard of 2^16 overflow any
+        # owner's 0.9 x 2^16 slots in a world of two or more
+        for i in range(326):
+            f.write(f">a{i}\n{'A' * 200}\n")
+    order = [p for r in range(world) for p in shard_files(paths, r, world)]
+    scen = dict(
+        rounds=dict(paths=paths, k=40, table_min=1, profiles=True,
+                    batch_bases=8000, parts_per_chip=2),
+        one=dict(paths=[one], k=17, table_min=1, batch_bases=1 << 20,
+                 env={"FASTK_TPU_ROUTE_BUDGET_MB": "0"}))
+    got = tw.run_world("mesh", world, tmp_path,
+                       dict(scenarios=scen, device="cuda"), tag="mesh")
+    for name, sc in scen.items():
+        ranks = [r[name] for r in got]
+        want = count_files(order if name == "rounds" else [one], sc["k"],
+                           table_min=1, profiles=sc.get("profiles", False),
+                           batch_bases=sc["batch_bases"], device="cpu")
+        assert np.array_equal(np.concatenate([r["table"][0] for r in ranks]),
+                              want.table.packed), name
+        assert np.array_equal(np.concatenate([r["table"][1] for r in ranks]),
+                              want.table.counts), name
+        for r in ranks:
+            assert r["hist"] == want.hist, name
+            assert r["spill_left"] == []
+        if want.profiles is not None:
+            profs = [p for r in ranks for p in r["profiles"]]
+            assert len(profs) == len(want.profiles)
+            assert all(np.array_equal(a, b)
+                       for a, b in zip(profs, want.profiles))
+    assert got[0]["one"]["stats"]["pre_dedup"] == 1
+
+    base = count_files([paths[0]], 40, table_min=1, batch_bases=1 << 20,
+                       device="cpu")
+    tab = str(tmp_path / "tab")
+    write_ktab(tab, base.table)
+    rel = tw.run_world("relative", world, tmp_path,
+                       dict(table=tab + ".ktab", paths=paths,
+                            batch_bases=[1 << 20, 8000], device="cuda"),
+                       tag="rel")
+    want = count_files(order, 40, profiles=True, relative_table=base.table,
+                       batch_bases=8000, device="cpu")
+    for bb in (1 << 20, 8000):
+        profs = [p for r in rel for p in r[bb][0]]
+        assert len(profs) == len(want.profiles)
+        assert all(np.array_equal(a, b)
+                   for a, b in zip(profs, want.profiles))
+
+    out = str(tmp_path / "cli")
+    assert tw.run_cli(world, tmp_path, ["-k40", "-t1", "-p",
+                                        f"-P{tmp_path}", f"-N{out}", *paths],
+                      env={"FASTK_TPU_BATCH_BASES": str(1 << 20)},
+                      device="cuda") == [0] * world
+    ref = str(tmp_path / "ref")
+    assert fastk.main(["-k40", "-t1", "-p", f"-N{ref}", *order],
+                      device="cpu") == 0
+    for ext in (".hist",):
+        with open(out + ext, "rb") as f, open(ref + ext, "rb") as g:
+            assert f.read() == g.read()
+    ta, tb = read_ktab(out), read_ktab(ref)
+    assert np.array_equal(ta.packed, tb.packed)
+    assert np.array_equal(ta.counts, tb.counts)
+    pa, pb = read_profiles(out), read_profiles(ref)
+    assert len(pa) == len(pb)
+    assert all(np.array_equal(a, b) for a, b in zip(pa, pb))

@@ -1,8 +1,7 @@
 """The port's public names and launchers.
 
-- ``fastk_tpu_torch`` exports the public names of ``fastk_tpu``; the two
-  multi-device entry points raise an AttributeError that says they wait for
-  the multi-device slice.
+- ``fastk_tpu_torch`` exports the public names of ``fastk_tpu``, the two
+  multi-device entry points among them, lazily.
 - The format codecs, the algebra and every host tool import without torch,
   and run their ``main`` without loading it.
 - Each launcher in ``fastk_tpu_torch/bin/`` runs its tool as a subprocess,
@@ -41,8 +40,7 @@ DEVICE_TOOLS = ["fastk", "kmermap"]
 MULTI_DEVICE = ("count_files_sharded", "count_files_mesh")
 
 
-@pytest.mark.parametrize("name", [n for n in fastk_tpu.__all__
-                                  if n not in MULTI_DEVICE])
+@pytest.mark.parametrize("name", fastk_tpu.__all__)
 def test_public_names_resolve(name):
     got = getattr(fastk_tpu_torch, name)
     want = getattr(fastk_tpu, name)
@@ -56,10 +54,14 @@ def test_public_names_resolve(name):
 
 @pytest.mark.parametrize("name", MULTI_DEVICE)
 def test_multi_device_names_wait(name):
-    assert name in fastk_tpu.__all__
-    with pytest.raises(AttributeError, match="multi-device slice"):
-        getattr(fastk_tpu_torch, name)
-    assert name not in fastk_tpu_torch.__all__
+    """The multi-device names waited for their slice of the port; they now
+    resolve lazily to the parallel modules, which load torch only then."""
+    from fastk_tpu_torch.parallel import host, meshooc
+
+    assert name in fastk_tpu.__all__ and name in fastk_tpu_torch.__all__
+    want = (host.count_files_sharded if name == "count_files_sharded"
+            else meshooc.count_files_mesh)
+    assert getattr(fastk_tpu_torch, name) is want
     with pytest.raises(AttributeError):
         fastk_tpu_torch.no_such_name
 

@@ -230,6 +230,28 @@ def test_resume_multislice_batch_matches_jax(tmp_path, monkeypatch):
     _same(got, want)
 
 
+@pytest.mark.parametrize("profiles", [False, True])
+def test_slice_positions_split_batches_match_jax(tmp_path, profiles):
+    """Phase 1 counts a batch in device slices of at most slice_positions
+    positions (the CLI derives them from -M): batches of ~90 kb in slices of
+    2^15 write JAX's file-sets."""
+    rng = np.random.default_rng(4)
+    genome = rng.integers(0, 4, size=4000)
+    p = _write(tmp_path / "big.fasta", _shotgun(rng, genome, 500, 150))
+    kw = dict(k=21, parts=3, table_min=1, profiles=profiles,
+              batch_bases=90_000, out_nparts=2)
+    for d in ("jax", "port", "sort"):
+        os.mkdir(tmp_path / d)
+    want = jax_ooc([p], sort_path=str(tmp_path / "sort"),
+                   out_base=str(tmp_path / "jax" / "o"), **kw)
+    got = count_files_ooc([p], sort_path=str(tmp_path / "sort"),
+                          out_base=str(tmp_path / "port" / "o"),
+                          slice_positions=1 << 15, device="cpu", **kw)
+    _same(got, want)
+    assert file_set(tmp_path / "port") == file_set(tmp_path / "jax")
+    assert os.listdir(tmp_path / "sort") == []
+
+
 def _planned(log: str) -> int:
     return int(re.search(r"planning (\d+) parts", log).group(1))
 
@@ -307,6 +329,56 @@ def test_ooc_plan_bounds_with_port_constants():
     # part_cap stays within [2^22, 2^26]
     assert plan(big, 1000, False, hbm)[1] == 1 << 26
     assert plan(big * 100, 0, False, hbm)[1] == 1 << 22
+
+
+@pytest.mark.parametrize("profiles", [True, False])
+def test_fused_single_batch_is_charged_its_footprint(data, tmp_path,
+                                                     monkeypatch, profiles):
+    """F6: an input the size of one batch with -p runs as one fused
+    count_batch, whose footprint (FUSED_BYTES a position) does not shrink
+    with the dedup ratio. At a measured ratio of 0.13 and -M8 between the
+    multi-batch charge (69 + 0.13 x 136 ~ 87 B a position) and FUSED_BYTES,
+    a 60 Mbp estimate goes out of core with -p; without -p it is still
+    promoted in core. Both write the JAX CLI's file-sets."""
+    est = 60_000_000
+    M = 8
+    assert (est * (cli_mod.POSITION_BYTES + 0.13 * cli_mod.UNIQUE_BYTES)
+            < M * 1e9 < est * cli_mod.FUSED_BYTES)
+    assert est + 56 <= tpipe.MAX_DEVICE_POSITIONS
+    assert est <= cli_mod._batch_bases({"M": M})
+    monkeypatch.setattr(cli_mod.os.path, "getsize", lambda p: est)
+    monkeypatch.setattr(cli_mod, "_measure_dedup", lambda *a: 0.13)
+    calls = []
+    for name in ("count_files", "count_files_ooc"):
+        real = getattr(cli_mod, name)
+
+        def spy(*a, _real=real, _name=name, **kw):
+            calls.append(_name)
+            return _real(*a, **kw)
+
+        monkeypatch.setattr(cli_mod, name, spy)
+    for d in ("jax", "port", "sort"):
+        os.mkdir(tmp_path / d)
+    argv = ["-k21", "-t1", f"-M{M}"] + (["-p"] if profiles else [])
+    assert fastk_main(argv + [f"-P{tmp_path}/sort", data,
+                              f"-N{tmp_path}/port/o"], device="cpu") == 0
+    assert calls == (["count_files_ooc"] if profiles else ["count_files"])
+    assert jax_fastk_main(argv + [data, f"-N{tmp_path}/jax/o"]) == 0
+    assert file_set(tmp_path / "port") == file_set(tmp_path / "jax")
+
+
+def test_slice_positions_follow_M():
+    """The out-of-core and mesh jobs' device slice: the largest power of two
+    whose dedup fits -M at SLICE_BYTES a position, in [2^20, 2^26]."""
+    sp = cli_mod._slice_positions
+    for M in (1, 8, 12, 100):
+        n = sp(M)
+        assert n & (n - 1) == 0
+        assert n * cli_mod.SLICE_BYTES <= M * 1e9 or n == 1 << 20
+        assert n == tpipe.MAX_DEVICE_POSITIONS or (
+            2 * n * cli_mod.SLICE_BYTES > M * 1e9)
+    assert (sp(1), sp(8), sp(12), sp(0)) == (1 << 22, 1 << 25, 1 << 26,
+                                             1 << 20)
 
 
 def test_device_budget(monkeypatch):

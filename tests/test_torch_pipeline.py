@@ -1,7 +1,7 @@
 """The port's job end to end on the CPU: byte-identical .hist files against
 the oracle goldens and against fastk_tpu's own pipeline, and the port's CLI
 and kmermap against fastk_tpu's (file-sets, -p:<table>, the batch-size cap,
-cleanup of partial outputs, multi-host refusal, tracing, beds)."""
+cleanup of partial outputs, the multi-process mode, tracing, beds)."""
 
 import json
 import os
@@ -22,6 +22,7 @@ from fastk_tpu_torch.tools.fastk import main as fastk_main
 from fastk_tpu_torch.tools.kmermap import main as kmermap_main
 
 import gen_data
+import torch_dist_worker as tw
 from test_torch_table import file_set
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -81,20 +82,36 @@ def test_cli_writes_golden_hist(tmp_path):
 
 
 @pytest.mark.parametrize("nprocs", ["2", "4"])
-def test_cli_unported_modes_die(tmp_path, monkeypatch, nprocs, capsys):
-    """F3: with FASTK_TPU_COORD and FASTK_TPU_NPROCS > 1 the JAX CLI runs
-    one mesh job across hosts; the port has no multi-host path, so it stops
-    before any host writes a file-set."""
-    monkeypatch.setenv("FASTK_TPU_COORD", "localhost:12355")
-    monkeypatch.setenv("FASTK_TPU_NPROCS", nprocs)
-    monkeypatch.setenv("FASTK_TPU_PROC", "0")
-    with pytest.raises(SystemExit) as e:
-        fastk_main(["-k40", "-t", f"-N{tmp_path}/x",
-                    os.path.join(INPUTS, "tiny.fasta")], device="cpu")
-    assert e.value.code != 0
-    assert ("fastk: multi-host runs are not yet ported"
-            in capsys.readouterr().err)
-    assert os.listdir(tmp_path) == []
+def test_cli_unported_modes_die(tmp_path, nprocs):
+    """F3, repaired: with FASTK_TPU_COORD, FASTK_TPU_NPROCS > 1 and
+    FASTK_TPU_PROC the port's CLI runs one job across that many processes
+    (gloo on the CPU) to the end, as the JAX CLI does: rank 0 splices the
+    slices, whose .hist equals the JAX CLI's over the same global read
+    order byte for byte and whose table and profiles equal its decoded
+    ones; no slice file-set is left."""
+    from fastk_tpu.formats.prof import read_profiles
+    from fastk_tpu.parallel.multihost import shard_files
+
+    world = int(nprocs)
+    inputs = [os.path.join(INPUTS, f) for f in
+              ("small.fasta", "small2.fasta", "tiny.fasta")]
+    out = str(tmp_path / "mh")
+    rcs = tw.run_cli(world, tmp_path, ["-k40", "-t1", "-p", f"-P{tmp_path}",
+                                       f"-N{out}", *inputs],
+                     env={"FASTK_TPU_BATCH_BASES": str(1 << 20)})
+    assert rcs == [0] * world
+    order = [p for r in range(world) for p in shard_files(inputs, r, world)]
+    want = str(tmp_path / "jax")
+    assert jax_fastk_main(["-k40", "-t1", "-p", f"-N{want}", *order]) == 0
+    assert _bytes(out + ".hist") == _bytes(want + ".hist")
+    ta, tb = read_ktab(out), read_ktab(want)
+    assert np.array_equal(ta.packed, tb.packed)
+    assert np.array_equal(ta.counts, tb.counts)
+    pa, pb = read_profiles(out), read_profiles(want)
+    assert len(pa) == len(pb)
+    assert all(np.array_equal(a, b) for a, b in zip(pa, pb))
+    assert not [f for f in os.listdir(tmp_path) if f.startswith(
+        tuple(f"{p}mh.{r}." for r in range(world) for p in ("", ".")))]
 
 
 def test_cli_single_process_env_runs(tmp_path, monkeypatch):
