@@ -62,7 +62,18 @@ Phases, one line each; any failure raises and the script exits non-zero:
     (route, exchange as a block transpose, owner count, counts back) on one
     card equal to count_batch, each timed; relative_profiles_sharded equal
     to phase 7's -p:<table> profiles; and -k40 -t3 -p -M8 on the phase-4
-    input run out of core under 8e9 B of device memory.
+    input run out of core under 8e9 B of device memory;
+15. the entry points (``fastk_tpu_torch/entry.py``): entry()'s step
+    on the card equal to the CPU port's, with its run_hist launch;
+    dryrun_multichip over an NCCL world of every visible card; and, only
+    on two or more cards, the mesh job -t3 -p on the phase-5 input split
+    into 8 files in a world of every card and in a world of one, both
+    byte-identical to phase 10, with walls, phases and each rank's device
+    peak, and sharded_count on the phase-4 batch at D = cards with its
+    all_to_all_single times.
+
+Run with arguments, the script is a rank of a phase-15c world
+(``fastk_tpu_torch/parallel/launch.py``).
 
 Then one JSON line describing each kernel, and as the last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
@@ -1124,6 +1135,350 @@ def multi_device_phase(tmp: str, fasta: str, fasta5: str, prof: str,
     return launches
 
 
+def entry_phase() -> int:
+    """Phase 15a: entry()'s step on the card equal to the CPU port's on the
+    same codes (segments, counts, histogram, pos_counts). Returns run_hist's
+    launches in the step."""
+    import torch
+
+    from fastk_tpu_torch import entry
+    from fastk_tpu_torch.ops.histker import run_hist
+
+    fn, (codes,) = entry.entry()
+    cfn, (ccodes,) = entry.entry(device="cpu")
+    if codes.device.type != "cuda":
+        raise AssertionError(f"phase 15a: entry() put its codes on "
+                             f"{codes.device}")
+    fn(codes)  # warm-up: the kernel's build and first launch
+    torch.cuda.synchronize()
+    run_hist.launches = 0
+    t0 = time.perf_counter()
+    got = fn(codes)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    launches = run_hist.launches
+    want = cfn(ccodes)
+    same = launches == 1 and all(
+        int(got[key]) == int(want[key])
+        for key in ("nseg", "nvalid", "overflow")) and all(
+        torch.equal(got[key].cpu(), want[key])
+        for key in ("seg_counts", "seg_valid", "hist", "pos_counts")) and all(
+        torch.equal(g.cpu(), w)
+        for g, w in zip(got["seg_words"], want["seg_words"]))
+    if not same:
+        raise AssertionError(f"phase 15a: entry()'s step on the card differs "
+                             f"from the CPU port ({launches} run_hist "
+                             f"launches)")
+    print(f"phase 15a entry(): count_batch at k {entry.ENTRY_K}, 2^"
+          f"{entry.ENTRY_SIZE.bit_length() - 1} positions on the card "
+          f"{step_ms:.3f} ms (host wall, synchronised, after a warm-up), "
+          f"equal to the CPU port (segments, {int(got['nseg'])} segments' "
+          f"counts, histogram, pos_counts); run_hist launches {launches}",
+          flush=True)
+    return launches
+
+
+def dryrun_phase(n: int) -> int:
+    """Phase 15b: dryrun_multichip over an NCCL world of n ranks, one a
+    card (entry.run_dryrun, which dryrun_multichip runs, returns the
+    ranks' reports). Returns run_hist's launches over the ranks."""
+    from fastk_tpu_torch import entry
+
+    t0 = time.perf_counter()
+    reports = entry.run_dryrun(n)
+    wall = time.perf_counter() - t0
+    if [r["rank"] for r in reports] != list(range(n)) or any(
+            r["world"] != n or not r["device"].startswith("cuda")
+            or r["run_hist_launches"] < 1 for r in reports):
+        raise AssertionError(f"phase 15b: reports {reports}")
+    launches = sum(r["run_hist_launches"] for r in reports)
+    print(f"phase 15b dryrun_multichip({n}): an NCCL world of {n} rank(s), "
+          f"one a card, every check passed in {wall:.2f} s (process "
+          f"start-up included; the ranks' own walls "
+          f"{[round(r['wall_s'], 2) for r in reports]} s); run_hist launches "
+          f"by rank {[r['run_hist_launches'] for r in reports]}; devices "
+          f"{[r['device'] for r in reports]} [{_smi()}]", flush=True)
+    return launches
+
+
+def _peak(dev):
+    import torch
+
+    return (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
+            else None)
+
+
+def _task_mesh_job(args) -> dict:
+    """A rank of phase 15c's mesh job: count_files_mesh on this rank's
+    share of args["paths"], its slice streamed to <out_base>.<rank> (or
+    <out_base> in a world of one); rank 0 writes the histogram there."""
+    import torch
+
+    from fastk_tpu_torch.formats.hist import write_histogram
+    from fastk_tpu_torch.ops.histker import run_hist
+    from fastk_tpu_torch.parallel.dist import make_mesh
+    from fastk_tpu_torch.parallel.meshooc import count_files_mesh
+    from fastk_tpu_torch.parallel.multihost import _barrier
+
+    mesh = make_mesh(device=args["device"])
+    sort = os.path.join(os.getcwd(), f"sort{mesh.rank}")
+    os.makedirs(sort, exist_ok=True)
+    if mesh.device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(mesh.device)
+    _barrier()
+    run_hist.launches = 0
+    t0 = time.perf_counter()
+    out = count_files_mesh(args["paths"], K, mesh=mesh, sort_path=sort,
+                           out_base=args["out_base"], **args["kw"])
+    wall = time.perf_counter() - t0
+    _barrier()
+    if mesh.rank == 0:
+        write_histogram(args["out_base"], out.hist)
+    return dict(wall_s=wall, phase_s=out.mesh_stats["phase_s"],
+                stats=out.mesh_stats, peak=_peak(mesh.device),
+                launches=run_hist.launches, slice_base=out.slice_base,
+                hist=out.hist, spill_left=os.listdir(sort))
+
+
+def _task_exchange(args) -> dict:
+    """A rank of phase 15c's sharded_count on the phase-4 batch, run twice;
+    the second run's all_to_all_single calls (the keys out, the counts
+    back) timed with CUDA events on the card. Rank 0 returns digests of
+    the result."""
+    import hashlib
+
+    import torch
+
+    from fastk_tpu_torch.io.reader import batched_reads
+    from fastk_tpu_torch.ops.histker import run_hist
+    from fastk_tpu_torch.parallel import dist as pdist
+    from fastk_tpu_torch.parallel.host import sharded_count
+
+    mesh = pdist.make_mesh(device=args["device"])
+    cuda = mesh.device.type == "cuda"
+    (batch,) = [b for b, _ in batched_reads([args["fasta"]], 256 << 20)]
+    real = pdist._exchange
+    times = []
+
+    def timed(m, send):
+        if not cuda:
+            return real(m, send)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        recv = real(m, send)
+        b.record()
+        times.append((a, b, send.numel() * send.element_size()))
+        return recv
+
+    pdist._exchange = timed
+    try:
+        for _ in range(2):
+            times.clear()
+            run_hist.launches = 0
+            t0 = time.perf_counter()
+            words, counts, hist, over, pos = sharded_count(
+                batch.codes, K, mesh, want_positions=True)
+            wall = time.perf_counter() - t0
+    finally:
+        pdist._exchange = real
+    if cuda:
+        torch.cuda.synchronize(mesh.device)
+    res = dict(launches=run_hist.launches, wall_s=wall,
+               exchanges=[(a.elapsed_time(b), nb) for a, b, nb in times])
+    if mesh.rank == 0:
+        res["digest"] = [hashlib.sha256(np.ascontiguousarray(x).tobytes())
+                         .hexdigest() for x in (words, counts, hist, pos)]
+        res["overflow"] = over
+    return res
+
+
+WORLD_TASKS = {"mesh_job": _task_mesh_job, "exchange": _task_exchange}
+WORKER = [sys.executable, os.path.abspath(__file__)]
+
+
+def _equal_size_chunks(fasta: str, d: str, nfiles: int) -> list:
+    """`fasta` split by read into nfiles files of consecutive reads under
+    d, each read named by its ordinal in six digits, so that the files
+    (reads of one length) have one size."""
+    with open(fasta, "rb") as f:
+        seqs = f.read().split(b"\n")[1::2]
+    paths = []
+    for i in range(nfiles):
+        lo, hi = i * len(seqs) // nfiles, (i + 1) * len(seqs) // nfiles
+        p = os.path.join(d, f"chunk{i}.fasta")
+        with open(p, "wb") as f:
+            f.write(b"".join(b">r%06d\n%s\n" % (j, seqs[j])
+                             for j in range(lo, hi)))
+        paths.append(p)
+    if len({os.path.getsize(p) for p in paths}) != 1:
+        raise AssertionError("phase 15c: the chunks differ in size")
+    return paths
+
+
+def rank_major_paths(chunks: list, world: int) -> list:
+    """The chunks arranged so that a world of `world` ranks reads them in
+    their own order (count_files_mesh reads rank-major: each rank its
+    shard_files share, in list order)."""
+    from fastk_tpu_torch.parallel.multihost import shard_files
+
+    if world == 1:
+        return list(chunks)
+    slots = [chunks.index(p) for r in range(world)
+             for p in shard_files(chunks, r, world)]
+    paths = [None] * len(chunks)
+    for j, slot in enumerate(slots):
+        paths[slot] = chunks[j]
+    if [p for r in range(world)
+            for p in shard_files(paths, r, world)] != chunks:
+        raise AssertionError("phase 15c: no rank-major arrangement")
+    return paths
+
+
+def restream(slices: list, target: str, k: int, nparts: int) -> None:
+    """The ranks' slice file-sets of one job (.ktab, .prof) written again
+    as one file-set of `nparts` parts: the table through fastcat's
+    streamed splice, the profiles decoded and encoded in read order."""
+    from fastk_tpu_torch.formats.prof import (
+        ProfileIndex,
+        ProfWriter,
+        encode_profiles_bulk,
+    )
+    from fastk_tpu_torch.tools.fastcat import cat_tables_streamed
+
+    cat_tables_streamed(slices, target, nparts)
+    idx = [ProfileIndex(s) for s in slices]
+    total = sum(pi.nreads for pi in idx)
+    with ProfWriter(target, k, total, nparts=min(nparts, max(1, total))) as pw:
+        for pi in idx:
+            profs = list(pi)
+            if not profs:
+                continue
+            plen = np.array([len(p) for p in profs], np.int64)
+            boff = np.concatenate([[0], np.cumsum(plen)[:-1]])
+            blob, offs = encode_profiles_bulk(np.concatenate(profs), boff,
+                                              plen)
+            pw.add_block(blob, offs)
+
+
+def multi_card_phase(tmp: str, fasta: str, fasta5: str, ooc_base: str,
+                     n: int, device: str = "cuda", M: float = 1) -> int:
+    """Phase 15c: the multi-device job at full size on n >= 2 cards.
+
+    count_files_mesh -t3 -p at the CLI's -M plan on the phase-5 input, split
+    by read into 8 files, in an NCCL world of n ranks and in a world of
+    one (launch.run_world, as dryrun_multichip starts its ranks): each
+    world's file-sets (the ranks' slices written again as one 4-part set)
+    byte-identical to `ooc_base`, phase 10's; each world's wall, phases
+    and each rank's device peak. Then sharded_count on the phase-4 batch
+    at D = n, equal to count_batch, with the all_to_all_single exchange's
+    ms a device step. Returns run_hist's launches over the ranks."""
+    import hashlib
+
+    import torch
+
+    from fastk_tpu_torch.formats.hist import write_histogram
+    from fastk_tpu_torch.io.reader import batched_reads
+    from fastk_tpu_torch.ops.count import count_batch
+    from fastk_tpu_torch.ops.pack import device_codes
+    from fastk_tpu_torch.parallel import launch
+    from fastk_tpu_torch.pipeline.count import _pad_codes, _round_size
+    from fastk_tpu_torch.tools import fastk as cli
+
+    t15 = time.perf_counter()
+    d15 = os.path.join(tmp, "p15")
+    os.mkdir(d15)
+    chunks = _equal_size_chunks(fasta5, d15, 8)
+    est = sum(os.path.getsize(p) for p in chunks)
+    dev = torch.device(device)
+    _parts, part_cap = cli._ooc_plan(est, M, True, cli._device_budget(dev))
+    launches = 0
+    lines = []
+    for world in sorted({n, 1}, reverse=True):
+        wdir = os.path.join(d15, f"w{world}")
+        os.mkdir(wdir)
+        base = os.path.join(tmp, f"m15w{world}")
+        kw = dict(table_min=3, profiles=True,
+                  batch_bases=cli._batch_bases({"M": M}),
+                  parts_per_chip=max(1, min(256, -(-est // (world
+                                                          * part_cap)))),
+                  part_cap=part_cap, out_nparts=4,
+                  slice_positions=cli._slice_positions(
+                      M, cli.MESH_SLICE_BYTES if world > 1
+                      else cli.SLICE_BYTES))
+        t0 = time.perf_counter()
+        res = launch.run_world(
+            WORKER, "mesh_job", world, wdir,
+            dict(device=device, paths=rank_major_paths(chunks, world),
+                 out_base=base if world == 1 else os.path.join(wdir, "m"),
+                 kw=kw, pg_timeout_s=600), timeout=900, tag="mesh")
+        outer = time.perf_counter() - t0
+        if world > 1:
+            restream([r["slice_base"] for r in res], base, K, 4)
+            write_histogram(base, res[0]["hist"])
+        if file_set(tmp, os.path.basename(base)) != file_set(tmp, ooc_base) \
+                or any(r["spill_left"] for r in res):
+            raise AssertionError(f"phase 15c: the world of {world}'s "
+                                 "file-sets differ from phase 10's, or "
+                                 "spills were left")
+        launches += sum(r["launches"] for r in res)
+        wall = max(r["wall_s"] for r in res)
+        phases = [max(r["phase_s"][i] for r in res) for i in range(3)]
+        peaks = [None if r["peak"] is None else round(r["peak"] / 1e9, 3)
+                 for r in res]
+        under = all((r["peak"] or 0) < M * 1e9 for r in res)
+        lines.append(
+            f"world {world}: count_files_mesh {wall:.2f} s (the slowest "
+            f"rank; phases 1-3 {phases[0]:.2f}, {phases[1]:.2f}, "
+            f"{phases[2]:.2f} s; by rank "
+            f"{[[round(x, 2) for x in r['phase_s']] for r in res]}; "
+            f"{outer:.2f} s with process start-up), {kw['parts_per_chip']} "
+            f"parts a rank, slices of {kw['slice_positions']} positions, "
+            f"max_memory_allocated by rank {peaks} GB ("
+            f"{'all' if under else 'NOT all'} under the {M:g} GB of -M), "
+            f"run_hist launches by rank {[r['launches'] for r in res]}, "
+            f"escalations {[r['stats']['slack_escalations'] for r in res]}")
+        for name in os.listdir(tmp):
+            if name.startswith((f"m15w{world}.", f".m15w{world}.")):
+                os.remove(os.path.join(tmp, name))
+    print(f"phase 15c the mesh job -k40 -t3 -p at the -M{M:g} plan on the "
+          f"phase-5 input in 8 files ({est} bytes), both worlds' file-sets "
+          f"byte-identical to phase 10's: " + "; ".join(lines)
+          + f" [{_smi()}]", flush=True)
+
+    # the exchange of one device step at D = n on the phase-4 batch
+    wdir = os.path.join(d15, "x")
+    os.mkdir(wdir)
+    res = launch.run_world(WORKER, "exchange", n, wdir,
+                           dict(device=device, fasta=fasta),
+                           timeout=900, tag="x")
+    (batch,) = [b for b, _ in batched_reads([fasta], 256 << 20)]
+    size = _round_size(len(batch.codes), K)
+    cb = count_batch(device_codes(_pad_codes(batch, K, size), dev), K, size,
+                     True, True)
+    want_w, want_c = _valid_segments(cb)
+    want = [hashlib.sha256(np.ascontiguousarray(x).tobytes()).hexdigest()
+            for x in (want_w, want_c.astype(np.int64),
+                      cb["hist"].cpu().numpy(),
+                      cb["pos_counts"].cpu().numpy().astype(np.int32)[
+                          : len(batch.codes)])]
+    if res[0]["digest"] != want or res[0]["overflow"] != int(cb["overflow"]):
+        raise AssertionError(f"phase 15c: sharded_count at D = {n} differs "
+                             "from count_batch")
+    del cb
+    launches += sum(r["launches"] for r in res)
+    ex = [[(round(ms, 3), nb) for ms, nb in r["exchanges"]] for r in res]
+    print(f"phase 15c sharded_count on the phase-4 batch at D = {n}, equal "
+          f"to count_batch: all_to_all_single by rank (ms, bytes sent a "
+          f"rank; the keys out, then the counts back; CUDA events, the "
+          f"second of two runs) {ex}"
+          f"; the step's host wall by rank "
+          f"{[round(r['wall_s'], 3) for r in res]} s; run_hist launches by "
+          f"rank {[r['launches'] for r in res]}; phase 15c "
+          f"{time.perf_counter() - t15:.1f} s [{_smi()}]", flush=True)
+    return launches
+
+
 def _smi() -> str:
     """The card's name and power limit as nvidia-smi reports them."""
     return subprocess.run(
@@ -1993,16 +2348,33 @@ def main() -> int:
         launches14 = multi_device_phase(tmp, fasta, fasta5, f"{tmp}/p1",
                                         "o10p", wp)
 
-    print(f"phases 1-14 in {time.perf_counter() - t_start:.1f} s [{_smi()}]",
+        # phase 15: the entry points, and the mesh job on every card
+        torch.cuda.empty_cache()
+        launches15a = entry_phase()
+        ncards = torch.cuda.device_count()
+        launches15b = dryrun_phase(ncards)
+        launches15c = 0
+        if ncards >= 2:
+            launches15c = multi_card_phase(tmp, fasta, fasta5, "o10p",
+                                           ncards)
+        else:
+            print("phase 15c needs two or more cards (one rank a card); "
+                  "this machine has one, so it ran nothing", flush=True)
+
+    print(f"phases 1-15 in {time.perf_counter() - t_start:.1f} s [{_smi()}]",
           flush=True)
 
     print(json.dumps({"kernels": [{
         "name": "run_hist", "route": "cuda",
         "source": "fastk_tpu_torch/csrc/run_hist.cu",
         "replaces": "fastk_tpu/ops/histker.py:72",
-        "launches": launches + launches7 + launches12 + launches14,
+        "launches": (launches + launches7 + launches12 + launches14
+                     + launches15a + launches15b + launches15c),
         "launches_per_job": launches,
         "launches_phase14a": launches14,
+        "launches_phase15a": launches15a,
+        "launches_phase15b": launches15b,
+        "launches_phase15c": launches15c,
         "max_abs_err": max_err,
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None,
@@ -2014,4 +2386,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) > 1:  # a rank of a phase-15c world
+        from fastk_tpu_torch.parallel.launch import worker_main
+
+        sys.exit(worker_main(WORLD_TASKS))
     sys.exit(main())

@@ -181,7 +181,6 @@ def count_files_multihost(
     keyspace-disjoint) and profile lists are exchanged, once. For results
     too large for one host's RAM, call count_files_mesh with ``out_base``
     and splice the slice file-sets with fastcat instead."""
-    from fastk_tpu_torch.formats.ktab import KmerTable
     from fastk_tpu_torch.parallel.meshooc import count_files_mesh, default_mesh
 
     if mesh is None:
@@ -192,26 +191,37 @@ def count_files_multihost(
     if _world()[1] == 1:
         return out
     if table_min is not None:
-        kb = (k + 3) // 4
-        rec = np.concatenate(
-            [out.table.packed,
-             np.ascontiguousarray(out.table.counts, dtype="<u2"
-                                  ).view(np.uint8).reshape(-1, 2)], axis=1)
-        allrec = np.concatenate(_allgather_ragged(rec))  # rank order
-        out.table = KmerTable(
-            k, table_min, allrec[:, :kb],
-            np.ascontiguousarray(allrec[:, kb:]).view("<u2").ravel())
+        out.table = gather_table(out.table)
     if profiles:
-        lens = np.array([len(p) for p in out.profiles], np.int64)
-        vals = (np.concatenate(out.profiles).astype(np.uint32)
-                if out.profiles else np.zeros(0, np.uint32))
-        glens = _allgather_ragged(lens)
-        gvals = _allgather_ragged(vals)
-        profs = []
-        for ls, vs in zip(glens, gvals):
-            off = 0
-            for L in ls:
-                profs.append(vs[off: off + int(L)].astype(np.uint16))
-                off += int(L)
-        out.profiles = profs
+        out.profiles = gather_profiles(out.profiles)
+    return out
+
+
+def gather_table(table):
+    """The ranks' keyspace slices of a table (KmerTable) concatenated in
+    rank order, which is key order: the whole table, on every rank."""
+    from fastk_tpu_torch.formats.ktab import KmerTable
+
+    kb = (table.kmer + 3) // 4
+    rec = np.concatenate(
+        [table.packed,
+         np.ascontiguousarray(table.counts, dtype="<u2"
+                              ).view(np.uint8).reshape(-1, 2)], axis=1)
+    allrec = np.concatenate(_allgather_ragged(rec))  # rank order
+    return KmerTable(table.kmer, table.minval, allrec[:, :kb],
+                     np.ascontiguousarray(allrec[:, kb:]).view("<u2").ravel())
+
+
+def gather_profiles(profiles) -> List[np.ndarray]:
+    """Every rank's profiles (uint16 arrays) in rank order, on every
+    rank."""
+    lens = np.array([len(p) for p in profiles], np.int64)
+    vals = (np.concatenate(profiles).astype(np.uint32)
+            if len(profiles) else np.zeros(0, np.uint32))
+    out = []
+    for ls, vs in zip(_allgather_ragged(lens), _allgather_ragged(vals)):
+        off = 0
+        for L in ls:
+            out.append(vs[off: off + int(L)].astype(np.uint16))
+            off += int(L)
     return out

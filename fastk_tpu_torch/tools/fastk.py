@@ -21,7 +21,8 @@ are the JAX package's, and so is the plan:
   (``pipeline/outofcore.py``) with its spills under -P. A one-batch -p
   input is charged its fused count's own footprint (FUSED_BYTES), which
   does not shrink with the ratio; the out-of-core job counts device slices
-  small enough for -M (SLICE_BYTES);
+  small enough for -M (SLICE_BYTES), and a rank of a multi-process job
+  slices small enough for its exchange too (MESH_SLICE_BYTES);
 - an in-core job that was promoted by the measurement and then runs out of
   device memory (torch.cuda.OutOfMemoryError) is redone out of core;
 - -R keeps the out-of-core spill and its manifest when a run fails, and a
@@ -83,11 +84,15 @@ from fastk_tpu_torch.tools._cli import die, print_number, source_root
 # per position of its input (141.1 B at 60 Mbp -t3 -p), and a device
 # slice's dedup per slice position, which sets the out-of-core and mesh
 # jobs' phase-1 peak (126.2 B, unique_batch_inst at 2^26 positions, k=40).
+# From chip_smoke.py phase 15c, a rank's peak in the multi-process mesh job
+# (-k40 -t3 -p, four ranks) per position of its device slice, the routed
+# exchange's send and receive lanes included (429 B at 4.2e6 positions).
 UNIQUE_BYTES = 136
 POSITION_BYTES = 69
 MERGE_BYTES = 142
 FUSED_BYTES = 142
 SLICE_BYTES = 127
+MESH_SLICE_BYTES = 430
 
 USAGE = """Usage: fastk [-k<int(40)>] [-t[<int(1)>]] [-p[:<table>[.ktab]]] [-c] [-bc<int>]
              [-v] [-N<path_name>] [-P<dir($TMPDIR)>] [-M<int(12)>] [-T<int(4)>]
@@ -276,11 +281,12 @@ def _incore_bytes(est_bases: int, ratio: float, profiles: bool,
     return est_bases * ratio * UNIQUE_BYTES
 
 
-def _slice_positions(M: float) -> int:
+def _slice_positions(M: float, nbytes: int = SLICE_BYTES) -> int:
     """Positions of an out-of-core or mesh job's device slice under -M: the
-    largest power of two whose dedup (SLICE_BYTES a position) fits, within
+    largest power of two whose dedup (nbytes a position: SLICE_BYTES, or
+    MESH_SLICE_BYTES for a rank of a multi-process job) fits, within
     [2^20, MAX_DEVICE_POSITIONS]."""
-    fit = max(1 << 20, int(M * 1e9) // SLICE_BYTES)
+    fit = max(1 << 20, int(M * 1e9) // nbytes)
     return min(MAX_DEVICE_POSITIONS, 1 << (fit.bit_length() - 1))
 
 
@@ -381,7 +387,8 @@ def _run(cfg, out_base: str, dev: torch.device, pid: int = 0,
     hbm = _device_budget(dev)
     parts, part_cap = _ooc_plan(est_bases, cfg["M"], cfg["p"], hbm)
     nparts = max(1, cfg["T"])
-    slice_positions = _slice_positions(cfg["M"])
+    slice_positions = _slice_positions(
+        cfg["M"], MESH_SLICE_BYTES if nprocs > 1 else SLICE_BYTES)
     if nprocs > 1:
         try:
             return _run_mesh(cfg, out_base, rel, batch_bases, nparts,

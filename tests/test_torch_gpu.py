@@ -2,7 +2,9 @@
 version, and the device paths (histogram, uniques, the fused count, the
 table compaction, the profile joins, the merge with want_back and the
 out-of-core job) on CUDA against the same calls on the CPU; the CLI's -M
-bound on a one-batch -p job; sharded_count in an NCCL world of one.
+bound on a one-batch -p job; sharded_count in an NCCL world of one; the
+NCCL worlds of one rank a card; the entry points (entry's step,
+dryrun_multichip).
 
 Imports no JAX, so that it runs on a machine with a card and without JAX:
 
@@ -472,3 +474,36 @@ def test_nccl_world_mesh_relative_and_cli(cuda_device, tmp_path):
     pa, pb = read_profiles(out), read_profiles(ref)
     assert len(pa) == len(pb)
     assert all(np.array_equal(a, b) for a, b in zip(pa, pb))
+
+
+def test_entry_on_card(cuda_device):
+    """entry()'s step on the card equals the CPU port's on the same codes,
+    and launches run_hist once."""
+    from fastk_tpu_torch import entry
+
+    fn, (codes,) = entry.entry()
+    assert codes.device.type == "cuda"
+    cfn, (ccodes,) = entry.entry(device="cpu")
+    before = histker.run_hist.launches
+    got = fn(codes)
+    assert histker.run_hist.launches == before + 1
+    want = cfn(ccodes)
+    for key in ("nseg", "nvalid", "overflow"):
+        assert int(got[key]) == int(want[key]), key
+    for key in ("seg_counts", "seg_valid", "hist", "pos_counts"):
+        assert torch.equal(got[key].cpu(), want[key]), key
+    for g, w in zip(got["seg_words"], want["seg_words"]):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_dryrun_multichip_nccl(cuda_device):
+    """dryrun_multichip over an NCCL world of one rank a card, every card
+    of the machine; each rank launches run_hist."""
+    from fastk_tpu_torch import entry
+
+    world = _nccl_world()
+    assert entry.dryrun_multichip(world) is None
+    reports = entry.run_dryrun(world)
+    assert [r["device"] for r in reports] == [f"cuda:{r}"
+                                              for r in range(world)]
+    assert all(r["run_hist_launches"] >= 1 for r in reports)

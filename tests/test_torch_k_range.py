@@ -1,7 +1,10 @@
 """The port's single-card path across the k range the CLI accepts (k up
-to 256) against the JAX package's: count_reads (the histogram job, -t1 and
--t1 -p) at k = 65, 128, 129, 160 and 256, and canonical_kmers at k =
-128-256. The multi-device path builds its keys with the same code."""
+to 256): count_reads (the histogram job, -t1 and -t1 -p) at k = 65, 128,
+129, 160 and 256, and canonical_kmers at k = 128-256, against the JAX
+package's; count_reads at k = 5-256 against the brute-force model
+(tests/util_bruteforce.py) and the JAX package, as tests/test_k_range.py
+holds the JAX package; and the CLI at k = 135. The multi-device path
+builds its keys with the same code."""
 
 import numpy as np
 import pytest
@@ -10,10 +13,13 @@ import torch
 from fastk_tpu.ops.kmers import canonical_kmers as jax_kmers
 from fastk_tpu.pipeline.count import count_reads as jax_count_reads
 from fastk_tpu_torch.convert import codes_from_numpy, words_to_numpy
+from fastk_tpu_torch.formats.hist import HIST_HIGH
 from fastk_tpu_torch.ops.kmers import canonical_kmers, pad_needed
 from fastk_tpu_torch.pipeline.count import count_reads
 
 import gen_data
+from test_k_range import _reads
+from util_bruteforce import count_kmers
 
 
 @pytest.fixture(scope="module")
@@ -67,3 +73,60 @@ def test_canonical_kmers_match_jax(k):
     assert np.array_equal(invalid.numpy(), np.asarray(jinv) != 0)
     for a, b in zip(words_to_numpy(words), jw):
         assert np.array_equal(a, np.asarray(b))
+
+
+@pytest.mark.parametrize("k", [5, 16, 17, 31, 32, 33, 63, 64, 65, 128, 129,
+                               160, 256])
+def test_counts_match_bruteforce(k):
+    """tests/test_k_range.py's case through the port: the histogram, the
+    table's size and spot checks of find and fetch_count against the
+    brute-force model, and the histogram and table against the JAX
+    package."""
+    reads = _reads(k, length=max(200, k + 60))
+    out = count_reads(reads, k, table_min=1, device="cpu")
+    want = count_kmers([r.decode() for r in reads], k)
+    counts = np.array(sorted(want.values()), dtype=np.int64)
+    bins = np.bincount(np.clip(counts, 0, HIST_HIGH),
+                       minlength=HIST_HIGH + 1)[1:]
+    assert np.array_equal(np.asarray(out.hist.as_unique().counts), bins)
+    assert len(out.table) == len(want)
+    items = sorted(want.items())
+    for i in [0, len(items) // 2, len(items) - 1]:
+        km, c = items[i]
+        j = out.table.find(km)
+        assert j is not None
+        assert out.table.fetch_count(j) == min(c, HIST_HIGH)
+    jax = jax_count_reads(reads, k, table_min=1)
+    assert np.array_equal(out.hist.counts, jax.hist.counts)
+    assert np.array_equal(out.table.packed, jax.table.packed)
+    assert np.array_equal(out.table.counts, jax.table.counts)
+
+
+def test_cli_k_beyond_reference(tmp_path):
+    """The port's CLI at k=135 (-t1 -p): its outputs load through the
+    port's readers and its tabex, and agree with the brute-force model."""
+    from fastk_tpu_torch.formats.hist import read_histogram
+    from fastk_tpu_torch.formats.ktab import read_ktab
+    from fastk_tpu_torch.formats.prof import read_profiles
+    from fastk_tpu_torch.tools import fastk, tabex
+
+    reads = [r.decode() for r in _reads(7, n=20, length=300)]
+    src = str(tmp_path / "in.fasta")
+    with open(src, "w") as f:
+        for i, r in enumerate(reads):
+            f.write(f">r{i}\n{r}\n")
+    base = str(tmp_path / "out")
+    assert fastk.main(["-k135", "-t1", "-p", f"-P{tmp_path}", src,
+                       f"-N{base}"], device="cpu") == 0
+
+    want = count_kmers(reads, 135)
+    h = read_histogram(base)
+    assert int(np.asarray(h.as_unique().counts).sum()) == len(want)
+    t = read_ktab(base)
+    assert t.kmer == 135 and len(t.counts) == len(want)
+    assert int(t.counts.astype(np.int64).sum()) == sum(want.values())
+    profs = read_profiles(base)
+    assert len(profs) == len(reads)
+    for r, p in zip(reads, profs):
+        assert len(p) == len(r) - 135 + 1
+    assert tabex.main(["-t1", base + ".ktab", "0-3"]) == 0

@@ -381,6 +381,31 @@ def test_slice_positions_follow_M():
                                              1 << 20)
 
 
+def test_mesh_slice_positions_follow_M(monkeypatch, tmp_path):
+    """F7: a rank of a multi-process job slices at MESH_SLICE_BYTES a
+    position, its exchange's lanes included, so that its peak keeps to -M
+    (at SLICE_BYTES a rank of four peaked at 1.788 GB under -M1); a
+    single-process job keeps SLICE_BYTES."""
+    got = {}
+
+    def mesh(cfg, out_base, rel, batch_bases, nparts, part_cap, est_bases,
+             slice_positions, pid, nprocs, dev):
+        got["mesh"] = slice_positions
+        return 0
+
+    monkeypatch.setattr(cli_mod, "_run_mesh", mesh)
+    src = tmp_path / "r.fasta"
+    src.write_text(">r\nACGTACGTAC\n")
+    cfg = cli_mod.parse_argv(["-k17", "-M1", str(src)])
+    assert cli_mod._run(cfg, str(tmp_path / "o"), torch.device("cpu"), 0,
+                        4) == 0
+    assert got["mesh"] == cli_mod._slice_positions(1, cli_mod.MESH_SLICE_BYTES)
+    assert got["mesh"] == 1 << 21
+    assert got["mesh"] * cli_mod.MESH_SLICE_BYTES <= 1e9
+    assert cli_mod._slice_positions(12, cli_mod.MESH_SLICE_BYTES) == 1 << 24
+    assert cli_mod._slice_positions(1) == 1 << 22
+
+
 def test_device_budget(monkeypatch):
     monkeypatch.delenv("FASTK_TPU_HBM_GB", raising=False)
     assert cli_mod._device_budget(torch.device("cpu")) == 13e9

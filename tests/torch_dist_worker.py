@@ -1,7 +1,8 @@
 """Rank workers for the port's multi-device tests on the CPU.
 
 Not a test module: the tests start a world of processes through
-``run_world``; each runs ``python torch_dist_worker.py <task> <rank>
+``run_world`` (the package's spawner, ``fastk_tpu_torch/parallel/
+launch.py``); each runs ``python torch_dist_worker.py <task> <rank>
 <world> <store> <out> <args>``, joins a gloo world through a FileStore
 under the test's tmp_path (an NCCL world, one card a rank, when
 args["device"] is "cuda"), runs the task named in TASKS and pickles its
@@ -10,62 +11,28 @@ result to ``<out>.<rank>.pkl``. Imports no JAX.
 
 from __future__ import annotations
 
-import datetime
-import json
 import os
-import pickle
 import socket
-import subprocess
 import sys
 import time
 
-HERE = os.path.dirname(os.path.abspath(__file__))
-REPO = os.path.dirname(HERE)
-WAIT_S = 180  # a world that does not finish in this is a failed test
-PG_TIMEOUT_S = 60  # init_process_group's timeout in the workers
+from fastk_tpu_torch.parallel import launch
+from fastk_tpu_torch.parallel.launch import WAIT_S, WorldFailed
 
-
-class WorldFailed(AssertionError):
-    pass
+COMMAND = [sys.executable, os.path.abspath(__file__)]
+_wait_all = launch.wait_all
 
 
 def _env(extra=None):
-    env = dict(os.environ)
+    env = launch.worker_env(extra)
     env.pop("JAX_PLATFORMS", None)
     env.pop("XLA_FLAGS", None)
-    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
-    env.update(extra or {})
     return env
 
 
-def _wait_all(procs, timeout):
-    """Wait for every process until the deadline; kill them all past it.
-    Returns the return codes and the standard errors, or None on timeout."""
-    deadline = time.monotonic() + timeout
-    for p in procs:
-        try:
-            p.wait(timeout=max(0.1, deadline - time.monotonic()))
-        except subprocess.TimeoutExpired:
-            for q in procs:
-                q.kill()
-                q.wait()
-            return None
-    return ([p.returncode for p in procs],
-            [p.stderr.read().decode(errors="replace") for p in procs])
-
-
-def spawn(task, world, tmp, args, env=None, ranks=None, tag="w"):
-    """Start the ranks of one world (all of them, or `ranks`) on `task`."""
-    store = os.path.join(str(tmp), f"{tag}.store")
-    if os.path.exists(store):
-        os.remove(store)
-    out = os.path.join(str(tmp), tag)
-    procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), task, str(r), str(world),
-         store, out, json.dumps(args)], env=_env(env), cwd=str(tmp),
-        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE)
-        for r in (range(world) if ranks is None else ranks)]
-    return procs, out
+def spawn(task, world, tmp, args, env=None, tag="w"):
+    """Start the ranks of one world on `task`."""
+    return launch.spawn(COMMAND, task, world, tmp, args, _env(env), tag)
 
 
 def run_world(task, world, tmp, args=None, env=None, timeout=WAIT_S,
@@ -73,23 +40,8 @@ def run_world(task, world, tmp, args=None, env=None, timeout=WAIT_S,
     """Run `task` on a world of `world` ranks and return each rank's
     result. A failed rendezvous or run is retried once, as the JAX
     package's multi-process tests do."""
-    fail = None
-    for _attempt in range(2):
-        procs, out = spawn(task, world, tmp, args or {}, env, tag=tag)
-        got = _wait_all(procs, timeout)
-        if got is None:
-            fail = f"{task}: the world of {world} passed {timeout} s"
-            continue
-        rcs, errs = got
-        if all(rc == 0 for rc in rcs):
-            results = []
-            for r in range(world):
-                with open(f"{out}.{r}.pkl", "rb") as f:
-                    results.append(pickle.load(f))
-            return results
-        fail = f"{task}: return codes {rcs}\n" + "\n".join(
-            e[-3000:] for e in errs)
-    raise WorldFailed(fail)
+    return launch.run_world(COMMAND, task, world, tmp, args, _env(env),
+                            timeout, tag, attempts=2)
 
 
 # ---- the tasks: each runs on every rank and returns a picklable result ---
@@ -269,34 +221,32 @@ def task_stall(args):
     return "finished"
 
 
+def task_dryrun(args):
+    """A rank of dryrun_multichip's world, rank 1 made to fail in the dry
+    run's second step (tests/test_torch_entry.py points the dry run's
+    worker command here)."""
+    import torch.distributed as dist
+
+    from fastk_tpu_torch import entry
+
+    if dist.get_rank() == 1:
+        def fail(*_a, **_kw):
+            raise RuntimeError("rank 1 made to fail")
+
+        entry.count_files_sharded = fail
+    (report,) = entry.run_dryrun(dist.get_world_size(), args["device"])
+    return report
+
+
 TASKS = {name[5:]: fn for name, fn in globals().items()
          if name.startswith("task_")}
 
 
 def main():
-    task, rank, world, store, out, args = sys.argv[1:7]
-    rank, world, args = int(rank), int(world), json.loads(args)
-    import torch
-    import torch.distributed as dist
-
-    cuda = args.get("device", "cpu") == "cuda"
-    if task == "cli":
-        os.environ["FASTK_TPU_PROC"] = str(rank)
-    else:
-        if cuda:
-            torch.cuda.set_device(rank % torch.cuda.device_count())
-        dist.init_process_group(
-            "nccl" if cuda else "gloo", store=dist.FileStore(store, world),
-            rank=rank, world_size=world,
-            timeout=datetime.timedelta(seconds=PG_TIMEOUT_S))
-    try:
-        res = TASKS[task](args)
-        with open(f"{out}.{rank}.pkl.tmp", "wb") as f:
-            pickle.dump(res, f)
-        os.replace(f"{out}.{rank}.pkl.tmp", f"{out}.{rank}.pkl")
-    finally:
-        if dist.is_initialized():
-            dist.destroy_process_group()
+    task, rank = sys.argv[1:3]
+    if task == "cli":  # the CLI joins its own world
+        os.environ["FASTK_TPU_PROC"] = rank
+    launch.worker_main(TASKS, join=task != "cli")
 
 
 def free_port() -> int:
