@@ -70,7 +70,16 @@ Phases, one line each; any failure raises and the script exits non-zero:
     into 8 files in a world of every card and in a world of one, both
     byte-identical to phase 10, with walls, phases and each rank's device
     peak, and sharded_count on the phase-4 batch at D = cards with its
-    all_to_all_single times.
+    all_to_all_single times;
+16. the probe kernels (``fastk_tpu_torch/csrc/probes.cu``, the Mosaic
+    probes P1-P14 of ``benchmarks/_pallas_feas*.py``): ``python -m
+    fastk_tpu_torch.probes`` on the card, its 19 probe lines OK with each
+    kernel's launches; each kernel against its plain version at the
+    probes' shapes and at the main path's scale (2^26 values into 32768
+    bins, the walk and pack of the phase-4 batch's 2^21 start words, a
+    carry over 2^14 blocks, 1M loop steps), timed beside its bound, its
+    plain version and, for the histogram, torch.bincount; the loop's ns a
+    step.
 
 Run with arguments, the script is a rank of a phase-15c world
 (``fastk_tpu_torch/parallel/launch.py``).
@@ -1437,7 +1446,12 @@ def multi_card_phase(tmp: str, fasta: str, fasta5: str, ooc_base: str,
             f"max_memory_allocated by rank {peaks} GB ("
             f"{'all' if under else 'NOT all'} under the {M:g} GB of -M), "
             f"run_hist launches by rank {[r['launches'] for r in res]}, "
-            f"escalations {[r['stats']['slack_escalations'] for r in res]}")
+            f"escalations {[r['stats']['slack_escalations'] for r in res]}, "
+            f"phase 3's profile exchange rounds by rank "
+            f"{[r['stats']['profile_exchange_rounds'] for r in res]}, "
+            f"the largest round's send and receive "
+            f"{max(r['stats']['profile_exchange_peak_bytes'] for r in res)}"
+            " B")
         for name in os.listdir(tmp):
             if name.startswith((f"m15w{world}.", f".m15w{world}.")):
                 os.remove(os.path.join(tmp, name))
@@ -1624,6 +1638,216 @@ def _host_ms(fn, reps: int = 3) -> float:
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     return statistics.median(times) * 1e3
+
+
+PROBE_SOURCE = "fastk_tpu_torch/csrc/probes.cu"
+PROBE_VALUES = 1 << 26  # phase 16's histogram input
+PROBE_BLOCKS = 1 << 14  # phase 16's carry, blocks of 1024
+# the pallas_call sites each probe kernel replaces
+PROBE_REPLACES = {
+    "probe_hist": "benchmarks/_pallas_feas.py:42 (P1), "
+                  "benchmarks/_pallas_feas2.py:53 (P5, P6), "
+                  "benchmarks/_pallas_feas2.py:170 (P10), "
+                  "benchmarks/_pallas_feas3.py:56 (P11), "
+                  "benchmarks/_pallas_feas4.py:28 (P14-D)",
+    "probe_loop": "benchmarks/_pallas_feas.py:70 (P2), "
+                  "benchmarks/_pallas_feas2.py:111 (P8), "
+                  "benchmarks/_pallas_feas3.py:84 (P12), "
+                  "benchmarks/_pallas_feas4.py:28 (P14-A, B, C)",
+    "probe_bits": "benchmarks/_pallas_feas.py:88 (P3), "
+                  "benchmarks/_pallas_feas2.py:140 (P9), "
+                  "benchmarks/_pallas_feas3.py:124 (P13), "
+                  "benchmarks/_pallas_feas4.py:28 (P14-E)",
+    "probe_carry": "benchmarks/_pallas_feas.py:113 (P4), "
+                   "benchmarks/_pallas_feas2.py:88 (P7)",
+}
+
+
+def _bound(nbytes: int, ops: int) -> tuple:
+    """(bound ms, "bytes" or "operations"): the larger of the bytes at the
+    memory rate and the operations at the scalar rate."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, ops / SCALAR_OPS_S
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def probes_phase(words_np: np.ndarray) -> list:
+    """Phase 16: the probe kernels (csrc/probes.cu).
+
+    a. `python -m fastk_tpu_torch.probes` in process on the card, every
+       probe line OK, with each kernel's launches counted from 0;
+    b. each kernel against its plain version on the card, at the probes'
+       shapes and at the main path's scale: 2^26 values into 32768 bins, the
+       walk and clz over `words_np` (the start words of the phase-4 batch,
+       2^21 words), the pack of their 2^26 mask bits, a carry over 2^14
+       blocks of 1024, and the loop at 1M steps;
+    c. each kernel's time at that scale (a launch in a CUDA graph), its
+       bound, its plain version's time and, for the histogram,
+       torch.bincount's; the loop's ns a step in each mode.
+
+    Returns the kernels line's entries of the four kernels."""
+    import torch
+
+    from fastk_tpu_torch import probes
+    from fastk_tpu_torch.ops import probes as ops
+
+    dev = torch.device("cuda")
+    t16 = time.perf_counter()
+    # a. the probes, the path of this slice
+    for k in ops.KERNELS:
+        k.launches = 0
+    results = probes.main("cuda")
+    torch.cuda.synchronize()
+    launches = {k.__name__: k.launches for k in ops.KERNELS}
+    bad = [r for r in results if not r[1]]
+    if len(results) != 19 or bad or min(launches.values()) < 1:
+        raise AssertionError(f"phase 16a: {len(results)} probes, failed "
+                             f"{bad}, launches {launches}")
+
+    # b. each kernel against its plain version on the same card tensors
+    g = torch.Generator(device=dev)
+    g.manual_seed(16)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    ones = torch.ones((8, 128), dtype=torch.int32, device=dev)
+    rng = np.random.default_rng(0)
+    big_vals = torch.randint(0, 32768, (PROBE_VALUES,), generator=g,
+                             device=dev, dtype=torch.int32)
+    words = t(words_np)
+    shifts = torch.arange(32, device=dev)
+    mask = ((words.long().unsqueeze(1) >> shifts) & 1).bool().reshape(-1)
+    blocks = torch.randint(-1000, 1000, (PROBE_BLOCKS, 1024), generator=g,
+                           device=dev, dtype=torch.int32)
+    trips_1m = torch.tensor([1_000_000], dtype=torch.int32, device=dev)
+    cases = {
+        "probe_hist": [
+            ("P1", (t(rng.integers(0, 16, 1024, np.int32)), 16)),
+            ("P5", (t(np.random.default_rng(0).integers(
+                0, 4096, 1024, np.int32)), 4096)),
+            ("P6", (t(np.random.default_rng(0).integers(
+                0, 32768, 1024, np.int32)), 32768)),
+            ("P10", (t(np.random.default_rng(2).permutation(128)[:16]
+                       .astype(np.int32)), 128, True)),
+            ("P14-D", (torch.arange(1000, dtype=torch.int32, device=dev)
+                       & 1023, 1024)),
+            ("the large size, into 32768 bins", (big_vals, 32768))],
+        "probe_loop": [
+            ("P2", (t(np.full((1, 1), 37, np.int32)),
+                    t(np.full(1, 37, np.int32)), "index")),
+            ("P14-A", (ones, t(np.array([1000], np.int32)), "static")),
+            ("P14-B", (ones, t(np.array([1000], np.int32)), "global")),
+            ("P14-C", (ones, t(np.array([1000], np.int32)), "shared"))]
+        + [(f"1M {m}", (t(rng.integers(-9, 9, (8, 128), np.int32)),
+                        trips_1m, m)) for m in ops.LOOP_MODES],
+        "probe_bits": [
+            ("P3", (t(np.full((1, 1), 1 << 20, np.int32)), "clz")),
+            ("P9", (t(np.random.default_rng(1).integers(0, 2, 1024)
+                      .astype(bool)), "pack", 16)),
+            ("P13", (t(np.random.default_rng(3).integers(
+                0, 1 << 16, 1024, dtype=np.int32)), "walk")),
+            ("P14-E", (torch.arange(100, dtype=torch.int32, device=dev) | 1,
+                       "walk")),
+            ("the start words, walk", (words, "walk")),
+            ("the start words, clz", (words, "clz")),
+            ("the start words' mask, pack", (mask, "pack", 32))],
+        "probe_carry": [
+            ("P4", (torch.arange(4096, dtype=torch.int32,
+                                 device=dev).reshape(4, 8, 128),)),
+            ("P7", (torch.arange(4096, dtype=torch.int32,
+                                 device=dev).reshape(4, 1024),)),
+            ("the large size", (blocks,))],
+    }
+    fns = {k.__name__: k for k in ops.KERNELS}
+    refs = {name: getattr(ops, name + "_ref") for name in fns}
+    errs = {}
+    for name, lst in cases.items():
+        errs[name] = 0
+        for label, args in lst:
+            got, want = fns[name](*args), refs[name](*args)
+            torch.cuda.synchronize()
+            if got.shape != want.shape or got.device != want.device:
+                raise AssertionError(f"phase 16b: {name} on {label}: shape "
+                                     f"{tuple(got.shape)} on {got.device}, "
+                                     f"plain {tuple(want.shape)}")
+            err = int((got.long() - want.long()).abs().max())
+            errs[name] = max(errs[name], err)
+            if err:
+                raise AssertionError(f"phase 16b: {name} differs from its "
+                                     f"plain version on {label}: max abs "
+                                     f"err {err}")
+    if not torch.equal(ops.probe_bits(mask, "pack", 32), words):
+        raise AssertionError("phase 16b: the pack of the start words' mask "
+                             "is not the start words")
+
+    # c. times at the main path's scale
+    nset = int(mask.sum())
+    tables = {m: args[0] for (label, args), m in zip(
+        cases["probe_loop"][4:], ops.LOOP_MODES)}
+    scale = {
+        "probe_hist": ((big_vals, 32768),
+                       _bound(4 * PROBE_VALUES + 4 * 32768, PROBE_VALUES),
+                       f"2^{PROBE_VALUES.bit_length() - 1} int32 values into "
+                       "32768 bins"),
+        "probe_loop": ((tables["global"], trips_1m, "global"),
+                       _bound(4 * 1024 + 8, 1_000_000),
+                       "1M steps from device memory, one thread"),
+        "probe_bits": ((mask, "pack", 32),
+                       _bound(mask.numel() + mask.numel() // 8, mask.numel()),
+                       f"ballot pack of {mask.numel()} mask bits into "
+                       f"{words.numel()} words"),
+        "probe_carry": ((blocks,),
+                        _bound(4 * blocks.numel() + 4 * PROBE_BLOCKS,
+                               blocks.numel()),
+                        f"{PROBE_BLOCKS} blocks of 1024 int32"),
+    }
+    entries = []
+    lines = []
+    for name, (args, (bound_ms, bound_by), what) in scale.items():
+        n = 2 if name == "probe_loop" else 20
+        ms = _graph_ms(lambda: fns[name](*args), n=n)
+        plain_ms = _cuda_ms(lambda: refs[name](*args))
+        library_ms = (_cuda_ms(lambda: torch.bincount(big_vals,
+                                                      minlength=32768))
+                      if name == "probe_hist" else None)
+        entries.append(dict(
+            name=name, route="cuda", source=PROBE_SOURCE,
+            replaces=PROBE_REPLACES[name], launches=launches[name],
+            max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+            at=what))
+        lines.append(f"{name} {ms:.4f} ms ({what}; bound {bound_ms:.4f} ms "
+                     f"by {bound_by}, {100 * bound_ms / ms:.1f} %; plain "
+                     f"{plain_ms:.4f} ms"
+                     + (f"; torch.bincount {library_ms:.4f} ms"
+                        if library_ms is not None else "") + ")")
+    walk_ms = _graph_ms(lambda: ops.probe_bits(words, "walk"))
+    walk_bound, walk_by = _bound(4 * words.numel() + 8, nset)
+    # ns a step: ms a launch x 1e6 ns / 1e6 steps
+    ns = {m: _graph_ms(lambda: ops.probe_loop(tables[m], trips_1m, m), n=2)
+          * 1e6 / 1_000_000 for m in ops.LOOP_MODES}
+    entries[1]["ns_per_step"] = ns
+    entries[2]["walk_ms"] = walk_ms
+    entries[2]["walk_bound_ms"] = walk_bound
+    print(f"phase 16a probes: {len(results)} probe lines OK on the card "
+          f"(python -m fastk_tpu_torch.probes); launches {launches}",
+          flush=True)
+    print(f"phase 16b kernels vs plain on the card: "
+          + ", ".join(f"{n} {len(c)} cases (max abs err {errs[n]})"
+                      for n, c in cases.items())
+          + "; the ballot pack of the phase-4 start words' mask equals "
+          "those words", flush=True)
+    print(f"phase 16c times (median of 7, a launch in a CUDA graph): "
+          + "; ".join(lines)
+          + f"; probe_bits walk over the {words.numel()} start words ({nset} "
+          f"set bits) "
+          f"{walk_ms:.4f} ms, bound {walk_bound:.4f} ms by {walk_by}; the "
+          f"loop a step: "
+          + ", ".join(f"{m} {v:.2f} ns" for m, v in ns.items())
+          + f"; phase 16 {time.perf_counter() - t16:.1f} s [{_smi()}]",
+          flush=True)
+    return entries
 
 
 def main() -> int:
@@ -1860,7 +2084,8 @@ def main() -> int:
         rnd_call_ms = _cuda_ms(lambda: run_hist(rnd, rnd_end))
         rnd_plain_ms = _cuda_ms(lambda: run_hist_ref(rnd, rnd_end))
         rnd_bound_ms, _ = run_hist_bound(rnd, rnd_end)
-        nstarts = int(np.unpackbits(sw.cpu().numpy().view(np.uint8),
+        sw_np = sw.cpu().numpy()  # phase 16 walks and packs them
+        nstarts = int(np.unpackbits(sw_np.view(np.uint8),
                                     bitorder="little")[:valid_end].sum())
         print(f"phase 6 times at 2^26 positions (median of 7, CUDA events): "
               f"run_hist kernel {kernel_ms:.4f} ms a launch in a CUDA graph "
@@ -2361,7 +2586,11 @@ def main() -> int:
             print("phase 15c needs two or more cards (one rank a card); "
                   "this machine has one, so it ran nothing", flush=True)
 
-    print(f"phases 1-15 in {time.perf_counter() - t_start:.1f} s [{_smi()}]",
+        # phase 16: the probe kernels, their path and their times
+        torch.cuda.empty_cache()
+        probe_entries = probes_phase(sw_np)
+
+    print(f"phases 1-16 in {time.perf_counter() - t_start:.1f} s [{_smi()}]",
           flush=True)
 
     print(json.dumps({"kernels": [{
@@ -2378,7 +2607,7 @@ def main() -> int:
         "max_abs_err": max_err,
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None,
-        "random_mask_ms": rnd_kernel_ms}]}))
+        "random_mask_ms": rnd_kernel_ms}] + probe_entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

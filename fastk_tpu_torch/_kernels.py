@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
 At first use, ``nvcc`` compiles every ``csrc/*.cu`` into one shared library
-with a plain C interface, loaded with ctypes. The library lands in
+with a plain C interface, loaded with ctypes: one ``nvcc -c`` a source, all
+started together, then one link. The library lands in
 ``_build/`` under a name keyed by a hash of the sources and flags, so a later
 run with the same sources loads it without building. Nothing here runs at
 import time: the CPU tests import every module on machines without nvcc.
@@ -20,7 +21,7 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD = os.path.join(_HERE, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 
 def sources() -> list:
@@ -53,15 +54,31 @@ def build() -> str:
     if os.path.exists(so):
         return so
     os.makedirs(BUILD, exist_ok=True)
-    tmp = f"{so}.{os.getpid()}.tmp"
-    r = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources()],
-                       capture_output=True, text=True)
-    if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed with exit code {r.returncode}:\n"
-                           f"{r.stdout}{r.stderr}")
+    nvcc = _nvcc()
+    tmp = f"{so}.{os.getpid()}"
+    objs = [f"{tmp}.{os.path.basename(src)}.o" for src in sources()]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(sources(), objs)]
+    logs = [p.communicate()[0] for p in procs]
+    try:
+        for p, src, log in zip(procs, sources(), logs):
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {os.path.basename(src)} "
+                                   f"with exit code {p.returncode}:\n{log}")
+        r = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", tmp + ".tmp",
+                            *objs], capture_output=True, text=True)
+        if r.returncode != 0:
+            raise RuntimeError(f"nvcc failed to link with exit code "
+                               f"{r.returncode}:\n{r.stdout}{r.stderr}")
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.unlink(obj)
     with open(so + ".log", "w") as f:
-        f.write(r.stdout + r.stderr)
-    os.replace(tmp, so)
+        f.write("".join(logs))
+    os.replace(tmp + ".tmp", so)
     return so
 
 
@@ -77,6 +94,15 @@ def load() -> ctypes.CDLL:
     lib.fk_run_hist_blocks_per_sm.argtypes = []
     lib.fk_cuda_error_string.restype = ctypes.c_char_p
     lib.fk_cuda_error_string.argtypes = [ctypes.c_int]
+    ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    for name, args in (
+            ("fk_probe_hist", [ptr, i64, i32, i32, ptr, ptr]),
+            ("fk_probe_loop", [ptr, i32, i32, ptr, i32, ptr, ptr]),
+            ("fk_probe_bits", [ptr, i64, i32, i32, ptr, ptr]),
+            ("fk_probe_carry", [ptr, i64, i64, ptr, ptr, ptr])):
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = args
     return lib
 
 

@@ -1,0 +1,412 @@
+// The run-end primitives of the run-length histogram, one kernel each, for
+// Hopper (sm_90a): the counterparts of the Mosaic feasibility probes that
+// came before the TPU's run-length kernel (benchmarks/_pallas_feas*.py).
+// Each asked whether the TPU could do one thing the histogram needs; each
+// kernel here does that thing on the H100, at any length, so that its time
+// can be read beside its bound.
+//
+// Every entry point launches on the stream it is given, does not
+// synchronise, allocates nothing, and returns the CUDA error of its launch
+// (0 on success). The wrappers are fastk_tpu_torch/ops/probes.py.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kMaxDev = 64;
+
+int g_sms[kMaxDev];  // SMs of each device, 0 = unread
+
+int sm_count(int* sms) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= kMaxDev) return (int)cudaErrorInvalidDevice;
+  if (!g_sms[dev]) {
+    err = cudaDeviceGetAttribute(&g_sms[dev], cudaDevAttrMultiProcessorCount,
+                                 dev);
+    if (err != cudaSuccess) return (int)err;
+  }
+  *sms = g_sms[dev];
+  return 0;
+}
+
+long long min_ll(long long a, long long b) { return a < b ? a : b; }
+
+// ---------------------------------------------------------------------------
+// fk_probe_hist: load, store and accumulate at a dynamic index.
+//
+// Replaces benchmarks/_pallas_feas.py:42 (P1, 16 bins), _pallas_feas2.py:53
+// (P5 and P6, 4096 and 32768 bins in SMEM scratch), _pallas_feas3.py:56
+// (P11, the same built from while loops), _pallas_feas4.py:28 kernel D
+// (P14-D, 1000 increments of a 1024-bin scratch) and, in store mode,
+// _pallas_feas2.py:170 (P10, out[x[i]] = i).
+//
+// Add mode: out[v] = the number of i with x[i] = v, for v in [0, nbins);
+// values outside are skipped. Each block zeroes a histogram of nbins int32
+// in shared memory, bins its grid-stride share of x with shared atomics,
+// and adds its nonzero bins to out with global atomics (out is zeroed by
+// the launcher). 32768 bins are 128 KiB, above the 48 KB a block gets
+// without asking, so the launcher raises the kernel's dynamic shared memory
+// limit once a device (cudaFuncSetAttribute) to the 227 KB a block can have.
+//
+// Store mode: out[x[i]] = i, where several i share a value the largest
+// (the last in order, as in a sequential loop); out is zeroed first. One
+// global atomicMax a value.
+//
+// Bound on the H100: bytes. Each value is read once (4 B) and the histogram
+// written once; at 2^26 values that is 256 MiB, 80 us at 3.35 TB/s, while
+// shared atomics on 132 SMs take some 10-20 us. So the design keeps every
+// load coalesced and every atomic in shared memory: one pass over x, one
+// flush of nonzero bins a block. A 32768-bin histogram leaves room for one
+// block of 1024 threads an SM; fewer bins let several blocks share an SM.
+
+constexpr int kHistThreads = 1024;
+constexpr int kMaxSmem = 232448;  // the most a block may ask for on sm_90
+
+__global__ void __launch_bounds__(kHistThreads)
+probe_hist_kernel(const int* __restrict__ x, long long n, int nbins,
+                  int store, int* __restrict__ out) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  const long long first = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (store) {
+    for (long long i = first; i < n; i += stride) {
+      const int v = __ldg(x + i);
+      if ((unsigned)v < (unsigned)nbins) atomicMax(out + v, (int)i);
+    }
+    return;
+  }
+  extern __shared__ int sh[];
+  for (int j = threadIdx.x; j < nbins; j += blockDim.x) sh[j] = 0;
+  __syncthreads();
+  for (long long i = first; i < n; i += stride) {
+    const int v = __ldg(x + i);
+    if ((unsigned)v < (unsigned)nbins) atomicAdd(sh + v, 1);
+  }
+  __syncthreads();
+  for (int j = threadIdx.x; j < nbins; j += blockDim.x) {
+    const int c = sh[j];
+    if (c) atomicAdd(out + j, c);
+  }
+}
+
+bool g_hist_smem_set[kMaxDev];
+// resident blocks of probe_hist_kernel an SM (0 = unread) at the shared
+// bytes of the last launch on each device
+int g_hist_occ[kMaxDev];
+int g_hist_occ_smem[kMaxDev];
+
+// ---------------------------------------------------------------------------
+// fk_probe_loop: a scalar loop with a trip count read from device memory.
+//
+// Replaces benchmarks/_pallas_feas.py:70 (P2, sum of 0..x[0,0]-1),
+// _pallas_feas2.py:111 (P8, 1M iterations of acc += x[i % 8, i % 128]),
+// _pallas_feas3.py:84 (P12, the same as a while loop) and
+// _pallas_feas4.py:28 kernels A-C (P14-A/B/C, 1000 iterations reading
+// x[0, 0], x[i & 7, i & 127] from device memory, and the same from shared
+// memory).
+//
+// Modes: 0 acc += i; 1 acc += x[0] (static index, loaded again each
+// iteration by an asm load nvcc cannot hoist, as the TPU's scalar core read
+// its ref each step); 2 acc += x[(i & (rows-1)) * cols + (i & (cols-1))]
+// from device memory; 3 the same from a copy of x in shared memory. The sum
+// wraps as int32 arithmetic.
+//
+// Bound: neither bytes nor operations. One thread runs a chain of dependent
+// adds (and loads), so a step costs the latency of an add or a load hit,
+// which is what the probe measures (the TPU probe timed its scalar core the
+// same way). An empty asm statement on the accumulator each step keeps nvcc
+// from replacing the loop by its closed form, and the trip count comes from
+// device memory, so nothing is folded at compile time.
+
+__global__ void probe_loop_kernel(const int* __restrict__ x, int rows,
+                                  int cols, const int* __restrict__ trips,
+                                  int mode, int* __restrict__ out) {
+  extern __shared__ int tab[];
+  if (mode == 3) {
+    for (int j = threadIdx.x; j < rows * cols; j += blockDim.x) tab[j] = x[j];
+    __syncthreads();
+  }
+  if (threadIdx.x != 0) return;
+  const int n = *trips;
+  const int rm = rows - 1, cm = cols - 1;
+  unsigned acc = 0;
+  if (mode == 0) {
+    for (int i = 0; i < n; ++i) {
+      acc += (unsigned)i;
+      asm volatile("" : "+r"(acc));
+    }
+  } else if (mode == 1) {
+    for (int i = 0; i < n; ++i) {
+      unsigned v;
+      asm volatile("ld.global.nc.u32 %0, [%1];" : "=r"(v) : "l"(x));
+      acc += v;
+      asm volatile("" : "+r"(acc));
+    }
+  } else if (mode == 2) {
+    for (int i = 0; i < n; ++i) {
+      acc += (unsigned)x[(i & rm) * cols + (i & cm)];
+      asm volatile("" : "+r"(acc));
+    }
+  } else {
+    for (int i = 0; i < n; ++i) {
+      acc += (unsigned)tab[(i & rm) * cols + (i & cm)];
+      asm volatile("" : "+r"(acc));
+    }
+  }
+  out[0] = (int)acc;
+}
+
+// ---------------------------------------------------------------------------
+// fk_probe_bits: clz, the ctz walk over set bits, and packing a mask.
+//
+// Replaces benchmarks/_pallas_feas.py:88 (P3, clz of 1 << 20),
+// _pallas_feas3.py:124 (P13, the sum of the set-bit indices of 1024 words
+// by ctz = 31 - clz(w & -w) and w &= w - 1), _pallas_feas4.py:28 kernel E
+// (P14-E, the same walk over i | 1 for i < 100) and _pallas_feas2.py:140
+// (P9, an (8,128) 0/1 mask packed 16 bits to a word by a matrix product).
+//
+// Modes: 0 clz, out[i] = __clz(x[i]); 1 walk, out[0] (int64, zeroed by the
+// launcher) += the sum over words of the indices of their set bits; 2 pack,
+// out[w] = bit b set where mask[width * w + b] != 0, LSB first, width 16 or
+// 32 (bit 31 lands in the sign, as in the TPU's int32 words). The walk and
+// the pack treat words as unsigned, so bit 31 is index 31 and w - 1 never
+// overflows.
+//
+// Bound: bytes. The walk reads 4 B a word and does one step a set bit, the
+// pack reads one byte a mask bit and writes one bit: at 2^21 words, 8 MiB
+// (2.5 us at 3.35 TB/s); at 2^26 mask bits, 64 MiB read and 8 MiB written
+// (22.5 us). So the walk takes one word a thread, sums its indices by
+// __ffs, reduces the warp by shuffles and adds once a warp; the pack has
+// each lane load one byte, where a warp's 32 bytes are one sector, and
+// packs 32 of them with one __ballot_sync (on this card ballot is how a
+// mask is packed; the matrix product was the TPU's way).
+
+constexpr int kBitsThreads = 256;
+
+__global__ void __launch_bounds__(kBitsThreads)
+probe_bits_kernel(const void* __restrict__ in, long long n, int mode,
+                  int width, void* __restrict__ out) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  const long long first = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (mode == 0) {
+    const unsigned* w = (const unsigned*)in;
+    int* o = (int*)out;
+    for (long long i = first; i < n; i += stride) o[i] = __clz(__ldg(w + i));
+    return;
+  }
+  if (mode == 1) {
+    const unsigned* w = (const unsigned*)in;
+    unsigned long long s = 0;
+    for (long long i = first; i < n; i += stride) {
+      unsigned v = __ldg(w + i);
+      while (v) {
+        s += __ffs(v) - 1;
+        v &= v - 1;
+      }
+    }
+#pragma unroll
+    for (int off = 16; off; off >>= 1) s += __shfl_down_sync(kFull, s, off);
+    if ((threadIdx.x & 31) == 0 && s)
+      atomicAdd((unsigned long long*)out, s);
+    return;
+  }
+  // pack: warp-uniform loop over groups of 32 mask bits
+  const unsigned char* m = (const unsigned char*)in;
+  int* o = (int*)out;
+  const int lane = threadIdx.x & 31;
+  const long long nout = n / width;
+  const long long ngroups = (n + 31) / 32;
+  for (long long g = first >> 5; g < ngroups; g += stride >> 5) {
+    const long long i = 32 * g + lane;
+    const unsigned b = __ballot_sync(kFull, i < n && __ldg(m + i) != 0);
+    if (width == 32) {
+      if (lane == 0) o[g] = (int)b;
+    } else if (lane == 0) {
+      o[2 * g] = (int)(b & 0xffffu);
+      if (2 * g + 1 < nout) o[2 * g + 1] = (int)(b >> 16);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// fk_probe_carry: a running sum carried from block to block.
+//
+// Replaces benchmarks/_pallas_feas.py:113 (P4, the running sums of 4 block
+// sums, carried in SMEM across a sequential grid) and _pallas_feas2.py:88
+// (P7, only the total).
+//
+// out[b] = the sum of x's rows 0..b (x is [nblocks, blen] int32; the sums
+// wrap as int32). CUDA blocks run in no order, so nothing carries over
+// from one to the next by itself. Each block takes its row from an atomic
+// ticket (so a block only ever waits on rows already taken by running
+// blocks, and the chain cannot deadlock), sums the row, and publishes the
+// sum at once with a flag (decoupled look-back): a 64-bit status word a
+// row, flag in bits 32-33 (1 the row's sum, 2 the inclusive prefix), value
+// in bits 0-31, written by one atomic exchange after a __threadfence.
+// Warp 0 then reads the 32 rows before its own at a time with volatile
+// loads, waits until all of them carry a flag, adds the values back to
+// and including the nearest prefix, and publishes its own prefix.
+//
+// Bound: bytes, each value read once (at 2^14 rows of 1024, 64 MiB, 20 us
+// at 3.35 TB/s). The look-back keeps the serial chain short: a block waits
+// on the nearest published prefix, not on every earlier block's.
+
+constexpr int kCarryThreads = 256;
+constexpr unsigned long long kAgg = 1ull << 32;
+constexpr unsigned long long kPre = 2ull << 32;
+
+__global__ void __launch_bounds__(kCarryThreads)
+probe_carry_kernel(const int* __restrict__ x, long long blen,
+                   unsigned long long* status, unsigned* ticket,
+                   int* __restrict__ out) {
+  __shared__ unsigned row_sh;
+  __shared__ unsigned part[kCarryThreads / 32];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  if (tid == 0) row_sh = atomicAdd(ticket, 1u);
+  __syncthreads();
+  const long long row = row_sh;
+  const int* xr = x + row * blen;
+  unsigned s = 0;
+  for (long long i = tid; i < blen; i += blockDim.x)
+    s += (unsigned)__ldg(xr + i);
+#pragma unroll
+  for (int off = 16; off; off >>= 1) s += __shfl_down_sync(kFull, s, off);
+  if (lane == 0) part[warp] = s;
+  __syncthreads();
+  if (warp != 0) return;
+  s = lane < kCarryThreads / 32 ? part[lane] : 0u;
+#pragma unroll
+  for (int off = 16; off; off >>= 1) s += __shfl_down_sync(kFull, s, off);
+  s = __shfl_sync(kFull, s, 0);  // the row's sum, in every lane
+  if (lane == 0) {
+    __threadfence();
+    const unsigned long long flag = row == 0 ? kPre + 0 : kAgg + 0;
+    atomicExch(status + row, flag | s);
+  }
+  unsigned excl = 0;
+  for (long long pred = row - 1; pred >= 0; pred -= 32) {
+    const long long j = pred - lane;
+    unsigned long long st = kPre;  // rows before the first: a prefix of 0
+    do {
+      if (j >= 0) st = *(volatile unsigned long long*)(status + j);
+    } while (__any_sync(kFull, (st >> 32) == 0));
+    const unsigned pre = __ballot_sync(kFull, (st >> 32) == 2);
+    const int stop = pre ? __ffs(pre) - 1 : 31;  // the nearest prefix
+    unsigned v = lane <= stop ? (unsigned)st : 0u;
+#pragma unroll
+    for (int off = 16; off; off >>= 1) v += __shfl_down_sync(kFull, v, off);
+    excl += __shfl_sync(kFull, v, 0);
+    if (pre) break;
+  }
+  if (lane == 0) {
+    const unsigned inc = excl + s;
+    if (row > 0) {
+      __threadfence();
+      atomicExch(status + row, kPre | inc);
+    }
+    out[row] = (int)inc;
+  }
+}
+
+}  // namespace
+
+// x: int32 [n]; out: int32 [nbins] on the device, zeroed here. store != 0
+// selects store mode. nbins in [1, 58112].
+extern "C" int fk_probe_hist(const void* x, long long n, int nbins, int store,
+                             void* out, void* stream) {
+  if (n < 0 || nbins < 1 || 4LL * nbins > kMaxSmem ||
+      (store && n > 0x7fffffffLL))
+    return (int)cudaErrorInvalidValue;
+  int sms = 0;
+  int err = sm_count(&sms);
+  if (err) return err;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (!g_hist_smem_set[dev]) {
+    err = (int)cudaFuncSetAttribute(
+        probe_hist_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kMaxSmem);
+    if (err) return err;
+    g_hist_smem_set[dev] = true;
+  }
+  cudaStream_t st = (cudaStream_t)stream;
+  err = (int)cudaMemsetAsync(out, 0, 4LL * nbins, st);
+  if (err) return err;
+  const int smem = store ? 0 : 4 * nbins;
+  if (!g_hist_occ[dev] || g_hist_occ_smem[dev] != smem) {
+    int occ = 0;
+    err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &occ, probe_hist_kernel, kHistThreads, smem);
+    if (err) return err;
+    g_hist_occ[dev] = occ > 0 ? occ : 1;
+    g_hist_occ_smem[dev] = smem;
+  }
+  const long long want = (n + kHistThreads - 1) / kHistThreads;
+  const long long blocks =
+      min_ll(want < 1 ? 1 : want, (long long)sms * g_hist_occ[dev]);
+  probe_hist_kernel<<<(int)blocks, kHistThreads, smem, st>>>(
+      (const int*)x, n, nbins, store, (int*)out);
+  return (int)cudaGetLastError();
+}
+
+// x: int32 [rows, cols] (rows, cols powers of two); trips: int32 [1], the
+// trip count, read by the kernel; out: int32 [1]. mode 0-3 as above.
+extern "C" int fk_probe_loop(const void* x, int rows, int cols,
+                             const void* trips, int mode, void* out,
+                             void* stream) {
+  if (mode < 0 || mode > 3 || rows < 1 || cols < 1 ||
+      (rows & (rows - 1)) || (cols & (cols - 1)) ||
+      (mode == 3 && 4LL * rows * cols > 48 * 1024))
+    return (int)cudaErrorInvalidValue;
+  const int smem = mode == 3 ? 4 * rows * cols : 0;
+  probe_loop_kernel<<<1, 32, smem, (cudaStream_t)stream>>>(
+      (const int*)x, rows, cols, (const int*)trips, mode, (int*)out);
+  return (int)cudaGetLastError();
+}
+
+// in: int32 [n] words (modes 0, 1) or uint8 [n] mask bytes (mode 2); out:
+// int32 [n] (mode 0), int64 [1] zeroed here (mode 1), int32 [n / width]
+// (mode 2, n a multiple of width, width 16 or 32).
+extern "C" int fk_probe_bits(const void* in, long long n, int mode, int width,
+                             void* out, void* stream) {
+  if (n < 0 || mode < 0 || mode > 2 ||
+      (mode == 2 && ((width != 16 && width != 32) || n % width)))
+    return (int)cudaErrorInvalidValue;
+  int sms = 0;
+  int err = sm_count(&sms);
+  if (err) return err;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (mode == 1) {
+    err = (int)cudaMemsetAsync(out, 0, 8, st);
+    if (err) return err;
+  }
+  if (n == 0) return 0;
+  // the pack takes 32 mask bytes a warp and step, the others one word a
+  // thread and step
+  const long long items = mode == 2 ? 32 * ((n + 31) / 32) : n;
+  const long long blocks =
+      min_ll((items + kBitsThreads - 1) / kBitsThreads, 8LL * sms);
+  probe_bits_kernel<<<(int)blocks, kBitsThreads, 0, st>>>(in, n, mode, width,
+                                                          out);
+  return (int)cudaGetLastError();
+}
+
+// x: int32 [nblocks, blen]; scratch: int64 [nblocks + 1], zeroed here (the
+// status words and the ticket); out: int32 [nblocks].
+extern "C" int fk_probe_carry(const void* x, long long nblocks,
+                              long long blen, void* scratch, void* out,
+                              void* stream) {
+  if (nblocks < 0 || blen < 0 || nblocks > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  int err = (int)cudaMemsetAsync(scratch, 0, 8 * (nblocks + 1), st);
+  if (err) return err;
+  if (nblocks == 0) return 0;
+  unsigned long long* status = (unsigned long long*)scratch;
+  probe_carry_kernel<<<(int)nblocks, kCarryThreads, 0, st>>>(
+      (const int*)x, blen, status, (unsigned*)(status + nblocks), (int*)out);
+  return (int)cudaGetLastError();
+}

@@ -19,9 +19,11 @@ Port of ``fastk_tpu/parallel/meshooc.py``, one card a process:
   every instance's count from the cross-batch merge (want_back) and buckets
   the (position, count) pairs by (source rank, batch); phase 3 walks
   batches in lockstep, delivering each batch's pairs OWNER-ADDRESSED (one
-  all_to_all of [D, L, 2] row lanes) to the rank that owns those reads,
-  which rebuilds one batch's position->count buffer and streams encoded
-  profiles (ProfWriter).
+  all_to_all of [D, L, 2] row lanes a round, L at most max(256,
+  slice_positions // D) rows a peer, so that a round stays within the
+  slice's budget) to the rank that owns those reads, which rebuilds one
+  batch's position->count buffer and streams encoded profiles
+  (ProfWriter).
 
 Outputs: with ``out_base`` each rank streams `.ktab`/`.prof` slice
 file-sets (``<out>.<rank>`` in a world of more than one, ``<out>`` alone in
@@ -226,8 +228,10 @@ def count_files_mesh(
     table_entries set to the global total) or, without out_base, returned
     as THIS RANK's keyspace slice (table) and THIS RANK's reads' profiles —
     count_files_multihost concatenates them. Its mesh_stats hold the
-    escalation counters and phase_s, this rank's wall seconds of phases
-    1-3.
+    escalation counters, phase_s (this rank's wall seconds of phases 1-3),
+    and phase 3's profile_exchange_rounds (all_to_all rounds, over all
+    batches) and profile_exchange_peak_bytes (the largest send plus
+    receive of one round).
 
     resume: keep each rank's phase-1 spill + a per-ROUND manifest on
     failure; a rerun (same inputs/config on all ranks) agrees on
@@ -348,6 +352,7 @@ def count_files_mesh(
     stats = dict(max_round_records=0, total_spilled=0, retrains=0,
                  slack_escalations=0, batch_splits=0, pre_dedup=0,
                  profile_rows_returned=0, profile_rows_padded=0,
+                 profile_exchange_rounds=0, profile_exchange_peak_bytes=0,
                  phase_s=[0.0, 0.0, 0.0])
     t_phase = time.perf_counter()
     if verbose and bdone:
@@ -728,6 +733,9 @@ def count_files_mesh(
             nb = len(metas)
             if nprocs > 1:
                 nb = int(_allgather(np.array([nb], np.int64)).max())
+            # a round's lanes hold at most `chunk` rows a peer: send and
+            # receive 2 x D x chunk x 8 B = 16 B a slice position
+            chunk = max(256, slice_positions // D)
             if stream:
                 pw = ProfWriter(slice_base, k, nreads,
                                 nparts=min(out_nparts, max(1, nreads)))
@@ -738,32 +746,44 @@ def count_files_mesh(
                 # rows destined for each rank, from MY card's joins
                 parcels = [pspill.load(q * (1 << 32) + b)
                            for q in range(nprocs)]
+                meta = metas[b] if b < len(metas) else None
+                buf = (np.zeros(meta.codes_len, dtype=np.uint16)
+                       if meta is not None else None)
                 if nprocs == 1:
                     pos64, cnt16 = parcels[0]
-                    mine = np.stack([pos64.astype(np.uint32),
-                                     cnt16.astype(np.uint32)], axis=1)
+                    buf[pos64] = cnt16
                 else:
-                    # OWNER-ADDRESSED exchange: one all_to_all delivers
-                    # exactly the rows each rank owns; the lane depth L is
-                    # agreed per round (pow2), padding sentinel-marked
+                    # OWNER-ADDRESSED exchange in rounds: each all_to_all
+                    # delivers at most L of the rows a rank owns to it from
+                    # each peer (L the pow2 of the largest peer's rows, at
+                    # most `chunk`), padding sentinel-marked; every rank
+                    # runs the rounds agreed from the largest lane, and
+                    # scatters each round's rows as they arrive
                     lane_need = max(len(p_[0]) for p_ in parcels)
                     lane_need = int(_allgather(
                         np.array([lane_need], np.int64)).max())
-                    L = max(256, 1 << int(np.ceil(np.log2(
-                        max(lane_need, 1)))))
-                    send = np.full((D, L, 2), _POS_SENT, dtype=np.uint32)
-                    for q in range(nprocs):
-                        pos64, cnt16 = parcels[q]
-                        send[q, : len(pos64), 0] = pos64
-                        send[q, : len(pos64), 1] = cnt16
-                    mine = _exchange_rows(mesh, send).reshape(-1, 2)
-                    mine = mine[mine[:, 0] != _POS_SENT]
-                    stats["profile_rows_returned"] += len(mine)
-                    stats["profile_rows_padded"] += D * L
-                if b < len(metas):
-                    meta = metas[b]
-                    buf = np.zeros(meta.codes_len, dtype=np.uint16)
-                    buf[mine[:, 0]] = mine[:, 1].astype(np.uint16)
+                    L = min(chunk, max(256, 1 << int(np.ceil(np.log2(
+                        max(lane_need, 1))))))
+                    rounds = -(-lane_need // L)
+                    for r in range(rounds):
+                        send = np.full((D, L, 2), _POS_SENT, dtype=np.uint32)
+                        for q in range(nprocs):
+                            pos64, cnt16 = parcels[q]
+                            pos64 = pos64[r * L: (r + 1) * L]
+                            send[q, : len(pos64), 0] = pos64
+                            send[q, : len(pos64), 1] = cnt16[r * L:
+                                                             (r + 1) * L]
+                        rows = _exchange_rows(mesh, send).reshape(-1, 2)
+                        rows = rows[rows[:, 0] != _POS_SENT]
+                        if buf is not None:
+                            buf[rows[:, 0]] = rows[:, 1].astype(np.uint16)
+                        stats["profile_rows_returned"] += len(rows)
+                        stats["profile_exchange_peak_bytes"] = max(
+                            stats["profile_exchange_peak_bytes"],
+                            2 * send.nbytes)
+                    stats["profile_rows_padded"] += D * L * rounds
+                    stats["profile_exchange_rounds"] += rounds
+                if meta is not None:
                     if pw is not None:
                         plen = np.maximum(meta.rlen - k + 1, 0)
                         blob, offs = encode_profiles_bulk(

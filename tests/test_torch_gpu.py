@@ -4,7 +4,9 @@ table compaction, the profile joins, the merge with want_back and the
 out-of-core job) on CUDA against the same calls on the CPU; the CLI's -M
 bound on a one-batch -p job; sharded_count in an NCCL world of one; the
 NCCL worlds of one rank a card; the entry points (entry's step,
-dryrun_multichip).
+dryrun_multichip); the probe kernels (ops/probes.py) against their plain
+versions at the probes' shapes and at a large size, and the whole of
+``python -m fastk_tpu_torch.probes``.
 
 Imports no JAX, so that it runs on a machine with a card and without JAX:
 
@@ -22,6 +24,7 @@ import torch
 import chip_smoke
 from fastk_tpu_torch.convert import codes_from_numpy, words_to_numpy
 from fastk_tpu_torch.ops import count, histker
+from fastk_tpu_torch.ops import probes as probe_ops
 from fastk_tpu_torch.ops.kmers import pad_needed
 from fastk_tpu_torch.pipeline.outofcore import count_files_ooc
 
@@ -507,3 +510,89 @@ def test_dryrun_multichip_nccl(cuda_device):
     assert [r["device"] for r in reports] == [f"cuda:{r}"
                                               for r in range(world)]
     assert all(r["run_hist_launches"] >= 1 for r in reports)
+
+
+def _probe_cases(dev):
+    """(kernel, label, args): the probes' shapes and one large size each."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(8)
+    rng = np.random.default_rng(8)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    words = torch.randint(-(1 << 31), (1 << 31) - 1, (1 << 20,), generator=g,
+                          device=dev, dtype=torch.int32)
+    ones = torch.ones((8, 128), dtype=torch.int32, device=dev)
+    out = []
+    for nbins in (16, 4096, 32768):
+        out.append(("probe_hist", f"1024 into {nbins}",
+                    (t(rng.integers(0, nbins, 1024, np.int32)), nbins)))
+    out += [
+        ("probe_hist", "2^24 into 32768 with strays",
+         (torch.randint(-5, 32800, (1 << 24,), generator=g, device=dev,
+                        dtype=torch.int32), 32768)),
+        ("probe_hist", "store, 16 of 128",
+         (t(rng.permutation(128)[:16].astype(np.int32)), 128, True)),
+        ("probe_hist", "store with repeats",
+         (t(rng.integers(0, 4000, 1 << 20).astype(np.int32)), 4096, True)),
+        ("probe_bits", "clz of 1 << 20", (t(np.full((1, 1), 1 << 20,
+                                                    np.int32)), "clz")),
+        ("probe_bits", "clz, 2^20 words", (words, "clz")),
+        ("probe_bits", "walk, 1024 words", (t(rng.integers(
+            0, 1 << 16, 1024, dtype=np.int32)), "walk")),
+        ("probe_bits", "walk, 2^20 words", (words, "walk")),
+        ("probe_bits", "pack 16, (8,128)", (t(rng.integers(0, 2, 1024)
+                                              .astype(bool)), "pack", 16)),
+        ("probe_bits", "pack 16, 2^20 + 16 bits",
+         (t(rng.integers(0, 2, (1 << 20) + 16).astype(bool)), "pack", 16)),
+        ("probe_bits", "pack 32, 2^22 bits",
+         (t(rng.integers(0, 2, 1 << 22).astype(bool)), "pack", 32)),
+        ("probe_carry", "4 blocks", (torch.arange(
+            4096, dtype=torch.int32, device=dev).reshape(4, 8, 128),)),
+        ("probe_carry", "2^14 blocks wrapping", (torch.randint(
+            -(1 << 30), 1 << 30, (1 << 14, 1024), generator=g, device=dev,
+            dtype=torch.int32),)),
+        ("probe_carry", "one block", (ones,))]
+    for mode in probe_ops.LOOP_MODES:
+        for trips in (0, 1, 37, 1000):
+            out.append(("probe_loop", f"{mode}, {trips}",
+                        (t(rng.integers(-9, 9, (8, 128), np.int32)),
+                         t(np.array([trips], np.int32)), mode)))
+    out.append(("probe_loop", "global, 1M", (
+        ones, t(np.array([1_000_000], np.int32)), "global")))
+    return out
+
+
+def test_probe_kernels_match_plain(cuda_device):
+    """Each probe kernel launches once a call and equals its plain version
+    on the card, at the probes' shapes and at a large size."""
+    for name, label, args in _probe_cases(cuda_device):
+        fn = getattr(probe_ops, name)
+        before = fn.launches
+        got = fn(*args)
+        assert fn.launches == before + 1
+        want = getattr(probe_ops, name + "_ref")(*args)
+        torch.cuda.synchronize()
+        assert got.device.type == "cuda"
+        assert got.dtype == want.dtype and torch.equal(got, want), (name,
+                                                                    label)
+
+
+def test_probes_module_on_card(cuda_device):
+    """python -m fastk_tpu_torch.probes: 19 probe lines, each OK, through
+    the four kernels."""
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run([sys.executable, "-m", "fastk_tpu_torch.probes"],
+                       cwd=repo, capture_output=True, text=True, timeout=600)
+    assert r.returncode == 0, r.stdout + r.stderr
+    lines = [ln for ln in r.stdout.splitlines() if ln.strip()]
+    assert len(lines) == 19 and all(" OK " in ln for ln in lines), r.stdout
+    from fastk_tpu_torch import probes
+
+    before = [k.launches for k in probe_ops.KERNELS]
+    assert all(ok for _, ok, _ in probes.main("cuda"))
+    assert all(k.launches > b for k, b in zip(probe_ops.KERNELS, before))

@@ -97,6 +97,12 @@ SCENARIOS_2 = {
     "sliced": lambda i: dict(paths=i["data"], k=40, table_min=1,
                              profiles=True, batch_bases=20000,
                              slice_positions=1 << 11),
+    # phase 3's rows in rounds of max(256, 2^9 // 2) = 256 rows a peer:
+    # ~1100 rows a peer in each rank's batch (F7)
+    "rounds": lambda i: dict(paths=i["data"], k=17, table_min=1,
+                             profiles=True, batch_bases=5000,
+                             slice_positions=1 << 9, stream=True,
+                             out_nparts=2),
 }
 SCENARIOS_4 = {
     "skew": lambda i: dict(paths=[i["skew"]], k=17, table_min=1,
@@ -227,6 +233,36 @@ def test_mesh_streamed_k40_splices_to_ooc(inputs, worlds, tmp_path):
     for r in ranks:
         assert _h(r["hist"]) == _h(ooc.hist) == _h(mesh.hist)
         assert r["entries"] == ooc.table_entries == mesh.table_entries
+
+
+def test_mesh_profile_exchange_in_rounds(inputs, worlds, tmp_path):
+    """F7: phase 3 exchanges a batch's profile rows in rounds of at most C =
+    max(256, slice_positions // D) rows a peer, so that one round holds at
+    most 2 x D x C x 8 B (send and receive); the spliced .prof/.pidx equal
+    the JAX package's count_files_mesh on the same global read order."""
+    world, ranks = worlds["rounds"]
+    sc = SCENARIOS_2["rounds"](inputs)
+    C = max(256, sc["slice_positions"] // world)
+    for r in ranks:
+        st = r["stats"]
+        assert st["profile_exchange_rounds"] >= 3
+        assert 0 < st["profile_exchange_peak_bytes"] <= 2 * world * C * 8
+        assert st["profile_rows_padded"] == (
+            world * C * st["profile_exchange_rounds"])
+    slices = []
+    for rank, res in enumerate(ranks):
+        for name, blob in res["files"].items():
+            with open(str(tmp_path / name.replace("X", f"s.{rank}", 1)),
+                      "wb") as f:
+                f.write(blob)
+        slices.append(str(tmp_path / f"s.{rank}"))
+    tgt = str(tmp_path / "spliced")
+    cat_profiles_spliced(slices, tgt, keep=True)
+    jm, _js = _jax_refs(sc, world, tmp_path)
+    got = read_profiles(tgt)
+    assert len(got) == len(jm.profiles) > 0
+    assert all(np.array_equal(a, b) for a, b in zip(got, jm.profiles))
+    assert all(_h(r["hist"]) == _h(jm.hist) for r in ranks)
 
 
 def test_mesh_kill_resume_two_process(inputs, tmp_path):

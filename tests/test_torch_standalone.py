@@ -1,5 +1,6 @@
 """The port stands alone: no module of fastk_tpu_torch, and not chip_smoke.py,
-imports anything of fastk_tpu, and the port runs its CLI with fastk_tpu
+imports anything of fastk_tpu, of JAX or of the repo's benchmarks/ (the
+Mosaic probe scripts among them), and the port runs its CLI with fastk_tpu
 blocked on the import path."""
 
 import ast
@@ -24,8 +25,12 @@ def _port_sources():
 SOURCES = _port_sources()
 
 
+FORBIDDEN = ("fastk_tpu", "jax", "benchmarks")
+
+
 def _is_jax_package(name: str) -> bool:
-    return name == "fastk_tpu" or name.startswith("fastk_tpu.")
+    """fastk_tpu, jax or benchmarks, or a module of one of them."""
+    return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
 
 
 def _imports(tree):
@@ -54,14 +59,27 @@ def test_scan_sees_every_module():
     for want in ("fastk_tpu_torch/io/reader.py",
                  "fastk_tpu_torch/formats/ktab.py",
                  "fastk_tpu_torch/native/__init__.py",
-                 "fastk_tpu_torch/tools/fastk.py", "chip_smoke.py"):
+                 "fastk_tpu_torch/tools/fastk.py",
+                 "fastk_tpu_torch/ops/probes.py",
+                 "fastk_tpu_torch/probes/__init__.py",
+                 "fastk_tpu_torch/probes/__main__.py",
+                 "fastk_tpu_torch/probes/feas.py",
+                 "fastk_tpu_torch/probes/feas2.py",
+                 "fastk_tpu_torch/probes/feas3.py",
+                 "fastk_tpu_torch/probes/feas4.py", "chip_smoke.py"):
         assert want in SOURCES
-    # the scan does catch a lazy import of the JAX package
+    # the scan does catch a lazy import of the JAX package, of JAX and of
+    # the probe scripts
     tree = ast.parse("def f():\n    from fastk_tpu import native\n"
                      "    import fastk_tpu.io.reader\n"
-                     "    from fastk_tpu_torch import native\n")
+                     "    from fastk_tpu_torch import native\n"
+                     "    import benchmarks._pallas_feas2\n"
+                     "    from benchmarks import _pallas_feas\n"
+                     "    from jax.experimental import pallas\n"
+                     "    import jaxlib, benchmarks_x\n")
     assert [n for _, n in _imports(tree) if _is_jax_package(n)] == [
-        "fastk_tpu", "fastk_tpu.io.reader"]
+        "fastk_tpu", "fastk_tpu.io.reader", "benchmarks._pallas_feas2",
+        "benchmarks", "jax.experimental"]
 
 
 @pytest.mark.parametrize("rel", SOURCES)
@@ -78,8 +96,9 @@ import ast, importlib, importlib.abc, os, pkgutil, sys
 
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
-        if name == "fastk_tpu" or name.startswith("fastk_tpu."):
-            raise ImportError("fastk_tpu is blocked: " + name)
+        if any(name == f or name.startswith(f + ".")
+               for f in ("fastk_tpu", "benchmarks")):
+            raise ImportError("blocked: " + name)
         return None
 
 sys.meta_path.insert(0, Block())
