@@ -77,9 +77,13 @@ Phases, one line each; any failure raises and the script exits non-zero:
     kernel's launches; each kernel against its plain version at the
     probes' shapes and at the main path's scale (2^26 values into 32768
     bins, the walk and pack of the phase-4 batch's 2^21 start words, a
-    carry over 2^14 blocks, 1M loop steps), timed beside its bound, its
-    plain version and, for the histogram, torch.bincount; the loop's ns a
-    step.
+    carry over 2^14 blocks, 1M loop steps) and at the 16-byte loads' edges
+    (views off a 16-byte boundary, tails, uint8 bytes viewed as bool),
+    timed beside its bound, its plain version and, for the histogram,
+    torch.bincount; the loop's ns a step and its latency floor at the SM
+    clock; the histogram at 4096 bins and on 2^21 values; and, with an
+    untracked copy of the parent's csrc/probes.cu at PARENT_PROBES, the
+    parent's histogram, pack and walk in turns with this tree's.
 
 Run with arguments, the script is a rank of a phase-15c world
 (``fastk_tpu_torch/parallel/launch.py``).
@@ -1671,6 +1675,58 @@ def _bound(nbytes: int, ops: int) -> tuple:
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+# an untracked copy of the parent commit's probe kernels, timed in turns
+# with this tree's in phase 16c when it is there (git archive <parent>
+# fastk_tpu_torch/csrc/probes.cu | tar -x -C _archive/parent); _archive/
+# is in .gitignore
+PARENT_PROBES = "_archive/parent/fastk_tpu_torch/csrc/probes.cu"
+
+
+def parent_probes():
+    """(fk_probe_hist, fk_probe_bits) of the parent's probe kernels, built
+    by one nvcc from the untracked copy at PARENT_PROBES into
+    _archive/parent_build/, or None when there is no copy."""
+    import ctypes
+
+    from fastk_tpu_torch import _kernels
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    src = os.path.join(here, PARENT_PROBES)
+    if not os.path.exists(src):
+        return None
+    out = os.path.join(here, "_archive", "parent_build")
+    os.makedirs(out, exist_ok=True)
+    so = os.path.join(out, "probes.so")
+    r = subprocess.run([_kernels._nvcc(), *_kernels.NVCC_FLAGS, "-shared",
+                        "-o", so, src], capture_output=True, text=True,
+                       timeout=600)
+    if r.returncode:
+        raise RuntimeError(f"phase 16c: nvcc failed on the parent's "
+                           f"kernels:\n{r.stdout}{r.stderr}")
+    lib = ctypes.CDLL(so)
+    fns = lib.fk_probe_hist, lib.fk_probe_bits
+    for fn in fns:
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    return fns
+
+
+def _busy_sm_mhz(fn, calls: int) -> float:
+    """clocks.sm in MHz as nvidia-smi reads it while the card works through
+    `calls` queued calls of fn."""
+    import torch
+
+    for _ in range(calls):
+        fn()
+    r = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm",
+                        "--format=csv,noheader,nounits"],
+                       capture_output=True, text=True, check=True,
+                       timeout=60)
+    torch.cuda.synchronize()
+    return float(r.stdout.split()[0])
+
+
 def probes_phase(words_np: np.ndarray) -> list:
     """Phase 16: the probe kernels (csrc/probes.cu).
 
@@ -1681,9 +1737,19 @@ def probes_phase(words_np: np.ndarray) -> list:
        walk and clz over `words_np` (the start words of the phase-4 batch,
        2^21 words), the pack of their 2^26 mask bits, a carry over 2^14
        blocks of 1024, and the loop at 1M steps;
+       Also the 16-byte loads' edges: views off a 16-byte boundary, a
+       tail, and uint8 bytes 0-255 viewed as a bool mask (held against the
+       plain pack of bytes != 0);
     c. each kernel's time at that scale (a launch in a CUDA graph), its
        bound, its plain version's time and, for the histogram,
-       torch.bincount's; the loop's ns a step in each mode.
+       torch.bincount's; the loop's ns a step in each mode, and its
+       latency floor, one dependent step a cycle at the SM clock
+       nvidia-smi reads while it runs; the histogram also at 4096 bins and
+       on 2^21 values (its flush), and the time torch.amax takes to read
+       the histogram's and the pack's input once. With a copy of the
+       parent's kernels at PARENT_PROBES, the parent's histogram, pack and
+       walk in turns with this tree's on the same tensors (parent, new,
+       new, parent).
 
     Returns the kernels line's entries of the four kernels."""
     import torch
@@ -1721,6 +1787,8 @@ def probes_phase(words_np: np.ndarray) -> list:
     blocks = torch.randint(-1000, 1000, (PROBE_BLOCKS, 1024), generator=g,
                            device=dev, dtype=torch.int32)
     trips_1m = torch.tensor([1_000_000], dtype=torch.int32, device=dev)
+    u8 = torch.randint(0, 256, (1 << 20,), generator=g, device=dev,
+                       dtype=torch.uint8)
     cases = {
         "probe_hist": [
             ("P1", (t(rng.integers(0, 16, 1024, np.int32)), 16)),
@@ -1732,7 +1800,9 @@ def probes_phase(words_np: np.ndarray) -> list:
                        .astype(np.int32)), 128, True)),
             ("P14-D", (torch.arange(1000, dtype=torch.int32, device=dev)
                        & 1023, 1024)),
-            ("the large size, into 32768 bins", (big_vals, 32768))],
+            ("the large size, into 32768 bins", (big_vals, 32768)),
+            ("an unaligned view with a tail",
+             (big_vals[3:(1 << 24) + 2], 32768))],
         "probe_loop": [
             ("P2", (t(np.full((1, 1), 37, np.int32)),
                     t(np.full(1, 37, np.int32)), "index")),
@@ -1751,7 +1821,13 @@ def probes_phase(words_np: np.ndarray) -> list:
                        "walk")),
             ("the start words, walk", (words, "walk")),
             ("the start words, clz", (words, "clz")),
-            ("the start words' mask, pack", (mask, "pack", 32))],
+            ("the start words' mask, pack", (mask, "pack", 32)),
+            ("the start words from the second, clz", (words[1:], "clz")),
+            ("the start words from the second, walk", (words[1:], "walk")),
+            ("the mask from byte 5", (mask[5:5 + (1 << 20)], "pack", 32)),
+            ("a tail at width 16", (mask[:(1 << 20) + 16], "pack", 16)),
+            ("uint8 bytes viewed as bool", (u8.view(torch.bool), "pack", 32),
+             (u8 != 0, "pack", 32))],
         "probe_carry": [
             ("P4", (torch.arange(4096, dtype=torch.int32,
                                  device=dev).reshape(4, 8, 128),)),
@@ -1764,8 +1840,8 @@ def probes_phase(words_np: np.ndarray) -> list:
     errs = {}
     for name, lst in cases.items():
         errs[name] = 0
-        for label, args in lst:
-            got, want = fns[name](*args), refs[name](*args)
+        for label, args, *plain in lst:
+            got, want = fns[name](*args), refs[name](*(plain or [args])[0])
             torch.cuda.synchronize()
             if got.shape != want.shape or got.device != want.device:
                 raise AssertionError(f"phase 16b: {name} on {label}: shape "
@@ -1785,6 +1861,9 @@ def probes_phase(words_np: np.ndarray) -> list:
     nset = int(mask.sum())
     tables = {m: args[0] for (label, args), m in zip(
         cases["probe_loop"][4:], ops.LOOP_MODES)}
+    # the loop's latency floor: one dependent step a cycle at the SM clock
+    sm_mhz = _busy_sm_mhz(lambda: ops.probe_loop(tables["global"], trips_1m,
+                                                 "global"), 200)
     scale = {
         "probe_hist": ((big_vals, 32768),
                        _bound(4 * PROBE_VALUES + 4 * 32768, PROBE_VALUES),
@@ -1795,7 +1874,7 @@ def probes_phase(words_np: np.ndarray) -> list:
                        "1M steps from device memory, one thread"),
         "probe_bits": ((mask, "pack", 32),
                        _bound(mask.numel() + mask.numel() // 8, mask.numel()),
-                       f"ballot pack of {mask.numel()} mask bits into "
+                       f"pack of {mask.numel()} mask bits into "
                        f"{words.numel()} words"),
         "probe_carry": ((blocks,),
                         _bound(4 * blocks.numel() + 4 * PROBE_BLOCKS,
@@ -1824,19 +1903,81 @@ def probes_phase(words_np: np.ndarray) -> list:
                         if library_ms is not None else "") + ")")
     walk_ms = _graph_ms(lambda: ops.probe_bits(words, "walk"))
     walk_bound, walk_by = _bound(4 * words.numel() + 8, nset)
+    # the histogram's other shapes (their times are the turns' below), and
+    # one read of each input by torch
+    vals_4096 = big_vals & 4095
+    flush_vals = big_vals[:1 << 21]
+    hist_bounds = {
+        "hist, 4096 bins": _bound(4 * PROBE_VALUES + 4 * 4096,
+                                  PROBE_VALUES)[0],
+        "hist, 2^21 values": _bound(4 * flush_vals.numel() + 4 * 32768,
+                                    flush_vals.numel())[0]}
+    mask_u8 = mask.view(torch.uint8)
+    read_ms = {"probe_hist": _graph_ms(lambda: torch.amax(big_vals)),
+               "probe_bits": _graph_ms(lambda: torch.amax(mask_u8))}
+    # the parent's kernels against this tree's, in turns
+    from fastk_tpu_torch import _kernels
+
+    def p_call(fn, x, a, b, out):
+        _kernels.check(fn(x.data_ptr(), x.numel(), a, b, out.data_ptr(),
+                          torch.cuda.current_stream().cuda_stream),
+                       "the parent's probe kernel")
+        return out
+
+    def p_hist(x, nbins):
+        return lambda fns: p_call(fns[0], x, nbins, 0, torch.empty(
+            nbins, dtype=torch.int32, device=dev))
+
+    parent = parent_probes()
+    pairs = {
+        "hist, 32768 bins": (p_hist(big_vals, 32768),
+                             lambda: ops.probe_hist(big_vals, 32768)),
+        "hist, 4096 bins": (p_hist(vals_4096, 4096),
+                            lambda: ops.probe_hist(vals_4096, 4096)),
+        "hist, 2^21 values": (p_hist(flush_vals, 32768),
+                              lambda: ops.probe_hist(flush_vals, 32768)),
+        "pack": (lambda fns: p_call(fns[1], mask, 2, 32, torch.empty(
+            words.numel(), dtype=torch.int32, device=dev)),
+                 lambda: ops.probe_bits(mask, "pack", 32)),
+        "walk": (lambda fns: p_call(fns[1], words, 1, 32, torch.empty(
+            1, dtype=torch.int64, device=dev)),
+                 lambda: ops.probe_bits(words, "walk"))}
+    turns = {}
+    for label, (p_fn, new_fn) in pairs.items():
+        order = [("new", new_fn)]
+        if parent is not None:
+            got, want = p_fn(parent), new_fn()
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"phase 16c: the parent's {label} "
+                                     "differs from this tree's")
+            order.insert(0, ("parent", lambda: p_fn(parent)))
+        t = {}
+        for v, fn in order + order[::-1]:  # parent, new, new, parent
+            t.setdefault(v, []).append(_graph_ms(fn))
+        turns[label] = t
     # ns a step: ms a launch x 1e6 ns / 1e6 steps
     ns = {m: _graph_ms(lambda: ops.probe_loop(tables[m], trips_1m, m), n=2)
           * 1e6 / 1_000_000 for m in ops.LOOP_MODES}
     entries[1]["ns_per_step"] = ns
+    entries[1]["sm_mhz"] = sm_mhz
+    # one dependent step a cycle: 1M cycles at sm_mhz MHz, in ms
+    entries[1]["latency_floor_ms"] = floor_ms = 1e3 / sm_mhz
     entries[2]["walk_ms"] = walk_ms
     entries[2]["walk_bound_ms"] = walk_bound
+    entries[0]["more_bound_ms"] = hist_bounds
+    for e in entries:
+        if e["name"] in read_ms:
+            e["read_ms"] = read_ms[e["name"]]
+    entries[0]["turns"] = {k: v for k, v in turns.items() if "hist" in k}
+    entries[2]["turns"] = {k: v for k, v in turns.items() if "hist" not in k}
     print(f"phase 16a probes: {len(results)} probe lines OK on the card "
           f"(python -m fastk_tpu_torch.probes); launches {launches}",
           flush=True)
     print(f"phase 16b kernels vs plain on the card: "
           + ", ".join(f"{n} {len(c)} cases (max abs err {errs[n]})"
                       for n, c in cases.items())
-          + "; the ballot pack of the phase-4 start words' mask equals "
+          + "; the pack of the phase-4 start words' mask equals "
           "those words", flush=True)
     print(f"phase 16c times (median of 7, a launch in a CUDA graph): "
           + "; ".join(lines)
@@ -1845,6 +1986,24 @@ def probes_phase(words_np: np.ndarray) -> list:
           f"{walk_ms:.4f} ms, bound {walk_bound:.4f} ms by {walk_by}; the "
           f"loop a step: "
           + ", ".join(f"{m} {v:.2f} ns" for m, v in ns.items())
+          + f", its latency floor {floor_ms:.4f} ms (one step a cycle at "
+          f"{sm_mhz:.0f} MHz, {100 * floor_ms / entries[1]['ms']:.1f} % of "
+          "the loop's time)"
+          + "; probe_" + ", ".join(
+              f"{k} {turns[k]['new'][0]:.4f} ms (bound {b:.4f} ms, "
+              f"{100 * b / turns[k]['new'][0]:.1f} %)"
+              for k, b in hist_bounds.items())
+          + "; one read by torch.amax: "
+          + ", ".join(f"{k}'s input {v:.4f} ms" for k, v in read_ms.items()),
+          flush=True)
+    print("phase 16c in turns (ms; the parent timed before and after "
+          "this tree's kernel): "
+          + "; ".join(f"{k}: " + ", ".join(
+              f"{v} {x[0]:.4f} / {x[1]:.4f}" for v, x in t.items())
+              for k, t in turns.items())
+          + ("" if parent is not None else
+             f"; the parent not timed: no copy of its kernels at "
+             f"{PARENT_PROBES}")
           + f"; phase 16 {time.perf_counter() - t16:.1f} s [{_smi()}]",
           flush=True)
     return entries

@@ -9,8 +9,11 @@
 // synchronise, allocates nothing, and returns the CUDA error of its launch
 // (0 on success). The wrappers are fastk_tpu_torch/ops/probes.py.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -33,7 +36,9 @@ int sm_count(int* sms) {
   return 0;
 }
 
-long long min_ll(long long a, long long b) { return a < b ? a : b; }
+__host__ __device__ inline long long min_ll(long long a, long long b) {
+  return a < b ? a : b;
+}
 
 // ---------------------------------------------------------------------------
 // fk_probe_hist: load, store and accumulate at a dynamic index.
@@ -45,58 +50,110 @@ long long min_ll(long long a, long long b) { return a < b ? a : b; }
 // _pallas_feas2.py:170 (P10, out[x[i]] = i).
 //
 // Add mode: out[v] = the number of i with x[i] = v, for v in [0, nbins);
-// values outside are skipped. Each block zeroes a histogram of nbins int32
-// in shared memory, bins its grid-stride share of x with shared atomics,
-// and adds its nonzero bins to out with global atomics (out is zeroed by
-// the launcher). 32768 bins are 128 KiB, above the 48 KB a block gets
-// without asking, so the launcher raises the kernel's dynamic shared memory
-// limit once a device (cudaFuncSetAttribute) to the 227 KB a block can have.
-//
-// Store mode: out[x[i]] = i, where several i share a value the largest
-// (the last in order, as in a sequential loop); out is zeroed first. One
-// global atomicMax a value.
+// values outside are skipped. Store mode: out[x[i]] = i, where several i
+// share a value the largest (the last in order, as in a sequential loop),
+// by one global atomicMax a value. The launcher zeroes out first.
 //
 // Bound on the H100: bytes. Each value is read once (4 B) and the histogram
-// written once; at 2^26 values that is 256 MiB, 80 us at 3.35 TB/s, while
-// shared atomics on 132 SMs take some 10-20 us. So the design keeps every
-// load coalesced and every atomic in shared memory: one pass over x, one
-// flush of nonzero bins a block. A 32768-bin histogram leaves room for one
-// block of 1024 threads an SM; fewer bins let several blocks share an SM.
+// written once; at 2^26 values that is 256 MiB, 80 us at 3.35 TB/s. A
+// 32768-bin histogram fills 128 KiB of shared memory (above the 48 KB a
+// block gets without asking: the launcher raises the kernel's limit once a
+// device), so an SM holds one block of 1024 threads (fewer bins let two
+// share an SM). Three things
+// stand between that block and the bound, and the add kernel answers each:
+// - loads in flight: one 4-byte load a thread keeps 4 KiB in flight an SM,
+//   several times too little to stream at 3.35 TB/s. Each thread reads
+//   kHistUnroll 16-byte pieces at once (64 B; neighbouring threads on
+//   neighbouring pieces), then bins their 16 values with shared atomics.
+//   A misaligned view's first values (up to 3, before the first 16-byte
+//   boundary) and the last n % 4 take scalar loads.
+// - the flush: with every bin of every block nonzero, adding each block's
+//   histogram to out is blocks x nbins global atomics onto the same bins.
+//   Blocks run as clusters of kHistCluster CTAs (Hopper's thread block
+//   clusters): after a cluster barrier, CTA r sums its r-th slice of the
+//   bins over the cluster's CTAs through distributed shared memory and adds
+//   each nonzero sum to out, so the flush issues nbins global atomics a
+//   cluster, kHistCluster times fewer. Clusters of 2 ran fastest at 2^26
+//   values on the H100: 4 and 8 cut the flush further (the fastest on 2^21
+//   values) but ran 4-6 % slower at 2^26, as if on 128 of its 132 SMs.
+// - shared-atomic conflicts among a warp's lanes, which stay (uniform
+//   values spread them over the banks).
+// The grid is the clusters the card holds at once (each block strides over
+// x), so no block waits for a second wave.
 
 constexpr int kHistThreads = 1024;
+constexpr int kHistUnroll = 4;   // 16-byte loads a thread keeps in flight
+constexpr int kHistCluster = 2;  // CTAs a cluster
 constexpr int kMaxSmem = 232448;  // the most a block may ask for on sm_90
 
-__global__ void __launch_bounds__(kHistThreads)
-probe_hist_kernel(const int* __restrict__ x, long long n, int nbins,
-                  int store, int* __restrict__ out) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  const long long first = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (store) {
-    for (long long i = first; i < n; i += stride) {
-      const int v = __ldg(x + i);
-      if ((unsigned)v < (unsigned)nbins) atomicMax(out + v, (int)i);
-    }
-    return;
-  }
+__device__ __forceinline__ void bin(int* sh, int v, int nbins) {
+  if ((unsigned)v < (unsigned)nbins) atomicAdd(sh + v, 1);
+}
+
+__device__ __forceinline__ void bin4(int* sh, int4 v, int nbins) {
+  bin(sh, v.x, nbins);
+  bin(sh, v.y, nbins);
+  bin(sh, v.z, nbins);
+  bin(sh, v.w, nbins);
+}
+
+__global__ void __cluster_dims__(kHistCluster, 1, 1)
+    __launch_bounds__(kHistThreads)
+probe_hist_add_kernel(const int* __restrict__ x, long long n, int nbins,
+                      int* __restrict__ out) {
   extern __shared__ int sh[];
-  for (int j = threadIdx.x; j < nbins; j += blockDim.x) sh[j] = 0;
+  cg::cluster_group cluster = cg::this_cluster();
+  for (int j = threadIdx.x; j < nbins; j += kHistThreads) sh[j] = 0;
   __syncthreads();
-  for (long long i = first; i < n; i += stride) {
-    const int v = __ldg(x + i);
-    if ((unsigned)v < (unsigned)nbins) atomicAdd(sh + v, 1);
+  const long long nt = (long long)gridDim.x * kHistThreads;
+  const long long tid = (long long)blockIdx.x * kHistThreads + threadIdx.x;
+  // x is 4-byte aligned: head values reach the first 16-byte boundary
+  const long long head =
+      min_ll(n, (long long)(((16 - ((uintptr_t)x & 15)) & 15) >> 2));
+  const long long nq = (n - head) >> 2;  // whole 16-byte pieces
+  const long long tail = head + 4 * nq;  // the last n - tail values
+  if (tid < head) bin(sh, __ldg(x + tid), nbins);
+  if (tid < n - tail) bin(sh, __ldg(x + tail + tid), nbins);
+  const int4* q = (const int4*)(x + head);
+  long long i = tid;
+  for (; i + (kHistUnroll - 1) * nt < nq; i += kHistUnroll * nt) {
+    int4 v[kHistUnroll];
+#pragma unroll
+    for (int k = 0; k < kHistUnroll; ++k) v[k] = __ldg(q + i + k * nt);
+#pragma unroll
+    for (int k = 0; k < kHistUnroll; ++k) bin4(sh, v[k], nbins);
   }
-  __syncthreads();
-  for (int j = threadIdx.x; j < nbins; j += blockDim.x) {
-    const int c = sh[j];
+  for (; i < nq; i += nt) bin4(sh, __ldg(q + i), nbins);
+  cluster.sync();  // every CTA of the cluster has binned its share
+  const int r = (int)cluster.block_rank();
+  const int lo = (int)((long long)nbins * r / kHistCluster);
+  const int hi = (int)((long long)nbins * (r + 1) / kHistCluster);
+  for (int j = lo + threadIdx.x; j < hi; j += kHistThreads) {
+    int c = 0;
+#pragma unroll
+    for (int k = 0; k < kHistCluster; ++k)
+      c += cluster.map_shared_rank(sh, k)[j];
     if (c) atomicAdd(out + j, c);
+  }
+  cluster.sync();  // no CTA leaves while another reads its bins
+}
+
+__global__ void __launch_bounds__(kHistThreads)
+probe_hist_store_kernel(const int* __restrict__ x, long long n, int nbins,
+                        int* __restrict__ out) {
+  const long long stride = (long long)gridDim.x * kHistThreads;
+  for (long long i = (long long)blockIdx.x * kHistThreads + threadIdx.x;
+       i < n; i += stride) {
+    const int v = __ldg(x + i);
+    if ((unsigned)v < (unsigned)nbins) atomicMax(out + v, (int)i);
   }
 }
 
 bool g_hist_smem_set[kMaxDev];
-// resident blocks of probe_hist_kernel an SM (0 = unread) at the shared
-// bytes of the last launch on each device
-int g_hist_occ[kMaxDev];
-int g_hist_occ_smem[kMaxDev];
+// clusters of probe_hist_add_kernel the device holds at once (0 = unread)
+// at the shared bytes of the last launch on each device
+int g_hist_clusters[kMaxDev];
+int g_hist_clusters_smem[kMaxDev];
 
 // ---------------------------------------------------------------------------
 // fk_probe_loop: a scalar loop with a trip count read from device memory.
@@ -114,10 +171,11 @@ int g_hist_occ_smem[kMaxDev];
 // from device memory; 3 the same from a copy of x in shared memory. The sum
 // wraps as int32 arithmetic.
 //
-// Bound: neither bytes nor operations. One thread runs a chain of dependent
-// adds (and loads), so a step costs the latency of an add or a load hit,
-// which is what the probe measures (the TPU probe timed its scalar core the
-// same way). An empty asm statement on the accumulator each step keeps nvcc
+// Bound: latency, not the card's rates. One thread runs a chain of
+// dependent adds (and loads), so a step costs the latency of an add or a
+// load hit, which is what the probe measures (the TPU probe timed its
+// scalar core the same way); the least a step can take is one cycle at the
+// SM clock. An empty asm statement on the accumulator each step keeps nvcc
 // from replacing the loop by its closed form, and the trip count comes from
 // device memory, so nothing is folded at compile time.
 
@@ -179,14 +237,35 @@ __global__ void probe_loop_kernel(const int* __restrict__ x, int rows,
 // pack reads one byte a mask bit and writes one bit: at 2^21 words, 8 MiB
 // (2.5 us at 3.35 TB/s); at 2^26 mask bits, 64 MiB read and 8 MiB written
 // (22.5 us). So the walk takes one word a thread, sums its indices by
-// __ffs, reduces the warp by shuffles and adds once a warp; the pack has
-// each lane load one byte, where a warp's 32 bytes are one sector, and
-// packs 32 of them with one __ballot_sync (on this card ballot is how a
-// mask is packed; the matrix product was the TPU's way).
+// __ffs (v &= v - 1, as K1's run-end walk steps through set bits),
+// reduces the warp by shuffles and adds once a warp. A one-byte load a
+// lane moves one 32-byte sector a warp instruction, so the pack reads 32
+// mask bytes a thread as two 16-byte loads, which become the thread's
+// 32-bit word (or its two 16-bit words) with SIMD byte arithmetic, stored
+// whole. A misaligned mask (a data_ptr() off a 16-byte boundary) and the
+// last mask bytes that do not fill 32 take the same steps from scalar
+// loads.
 
 constexpr int kBitsThreads = 256;
+// A byte's bit 7 after ((b & 0x7f) + 0x7f) | b is set when b != 0 (no carry
+// leaves the byte). The product by kGather = 2^0 + 2^7 + 2^14 + 2^21 moves
+// bit 8j + 7 of the word to bit 28 + j and its other 12 terms to distinct
+// bits outside 28..31, so no carry reaches the top nibble.
+constexpr unsigned kLow7 = 0x7f7f7f7fu;
+constexpr unsigned kHigh = 0x80808080u;
+constexpr unsigned kGather = 0x00204081u;
+constexpr int kGatherShift = 28;
 
-__global__ void __launch_bounds__(kBitsThreads)
+// 4 mask bytes (byte j at bits 8j..8j+7) -> 4 bits, bit j = byte j != 0
+__device__ __forceinline__ unsigned nib4(unsigned w) {
+  return ((((w & kLow7) + kLow7) | w) & kHigh) * kGather >> kGatherShift;
+}
+
+__device__ __forceinline__ unsigned pack16(uint4 q) {
+  return nib4(q.x) | nib4(q.y) << 4 | nib4(q.z) << 8 | nib4(q.w) << 12;
+}
+
+__global__ void __launch_bounds__(kBitsThreads, 2048 / kBitsThreads)
 probe_bits_kernel(const void* __restrict__ in, long long n, int mode,
                   int width, void* __restrict__ out) {
   const long long stride = (long long)gridDim.x * blockDim.x;
@@ -213,18 +292,27 @@ probe_bits_kernel(const void* __restrict__ in, long long n, int mode,
       atomicAdd((unsigned long long*)out, s);
     return;
   }
-  // pack: warp-uniform loop over groups of 32 mask bits
+  // pack: 32 mask bytes a thread and step, one 32-bit word
   const unsigned char* m = (const unsigned char*)in;
   int* o = (int*)out;
-  const int lane = threadIdx.x & 31;
   const long long nout = n / width;
-  const long long ngroups = (n + 31) / 32;
-  for (long long g = first >> 5; g < ngroups; g += stride >> 5) {
-    const long long i = 32 * g + lane;
-    const unsigned b = __ballot_sync(kFull, i < n && __ldg(m + i) != 0);
+  const bool vec = ((uintptr_t)in & 15) == 0;
+  const bool pair_out = ((uintptr_t)out & 7) == 0;
+  for (long long g = first; 32 * g < n; g += stride) {
+    const long long i = 32 * g;
+    unsigned b = 0;
+    if (vec && i + 32 <= n) {
+      const uint4* p = (const uint4*)(m + i);
+      b = pack16(__ldg(p)) | pack16(__ldg(p + 1)) << 16;
+    } else {
+      for (int j = 0; j < 32 && i + j < n; ++j)
+        b |= (unsigned)(__ldg(m + i + j) != 0) << j;
+    }
     if (width == 32) {
-      if (lane == 0) o[g] = (int)b;
-    } else if (lane == 0) {
+      o[g] = (int)b;
+    } else if (2 * g + 1 < nout && pair_out) {
+      *(int2*)(o + 2 * g) = make_int2((int)(b & 0xffffu), (int)(b >> 16));
+    } else {
       o[2 * g] = (int)(b & 0xffffu);
       if (2 * g + 1 < nout) o[2 * g + 1] = (int)(b >> 16);
     }
@@ -317,7 +405,7 @@ probe_carry_kernel(const int* __restrict__ x, long long blen,
 // selects store mode. nbins in [1, 58112].
 extern "C" int fk_probe_hist(const void* x, long long n, int nbins, int store,
                              void* out, void* stream) {
-  if (n < 0 || nbins < 1 || 4LL * nbins > kMaxSmem ||
+  if (n < 0 || nbins < 1 || 4LL * nbins > kMaxSmem || ((uintptr_t)x & 3) ||
       (store && n > 0x7fffffffLL))
     return (int)cudaErrorInvalidValue;
   int sms = 0;
@@ -325,30 +413,44 @@ extern "C" int fk_probe_hist(const void* x, long long n, int nbins, int store,
   if (err) return err;
   int dev = 0;
   cudaGetDevice(&dev);
+  cudaStream_t st = (cudaStream_t)stream;
+  err = (int)cudaMemsetAsync(out, 0, 4LL * nbins, st);
+  if (err) return err;
+  if (n == 0) return 0;
+  if (store) {
+    const long long blocks =
+        min_ll((n + kHistThreads - 1) / kHistThreads, 2LL * sms);
+    probe_hist_store_kernel<<<(int)blocks, kHistThreads, 0, st>>>(
+        (const int*)x, n, nbins, (int*)out);
+    return (int)cudaGetLastError();
+  }
   if (!g_hist_smem_set[dev]) {
     err = (int)cudaFuncSetAttribute(
-        probe_hist_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        probe_hist_add_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         kMaxSmem);
     if (err) return err;
     g_hist_smem_set[dev] = true;
   }
-  cudaStream_t st = (cudaStream_t)stream;
-  err = (int)cudaMemsetAsync(out, 0, 4LL * nbins, st);
-  if (err) return err;
-  const int smem = store ? 0 : 4 * nbins;
-  if (!g_hist_occ[dev] || g_hist_occ_smem[dev] != smem) {
-    int occ = 0;
-    err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &occ, probe_hist_kernel, kHistThreads, smem);
+  const int smem = 4 * nbins;
+  if (!g_hist_clusters[dev] || g_hist_clusters_smem[dev] != smem) {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(kHistCluster);
+    cfg.blockDim = dim3(kHistThreads);
+    cfg.dynamicSmemBytes = smem;
+    int clusters = 0;
+    err = (int)cudaOccupancyMaxActiveClusters(
+        &clusters, (const void*)probe_hist_add_kernel, &cfg);
     if (err) return err;
-    g_hist_occ[dev] = occ > 0 ? occ : 1;
-    g_hist_occ_smem[dev] = smem;
+    if (clusters < 1) return (int)cudaErrorInvalidConfiguration;
+    g_hist_clusters[dev] = clusters;
+    g_hist_clusters_smem[dev] = smem;
   }
-  const long long want = (n + kHistThreads - 1) / kHistThreads;
-  const long long blocks =
-      min_ll(want < 1 ? 1 : want, (long long)sms * g_hist_occ[dev]);
-  probe_hist_kernel<<<(int)blocks, kHistThreads, smem, st>>>(
-      (const int*)x, n, nbins, store, (int*)out);
+  // a cluster takes this many values a step of its threads
+  const long long per = 4LL * kHistUnroll * kHistThreads * kHistCluster;
+  const long long clusters =
+      min_ll((n + per - 1) / per, (long long)g_hist_clusters[dev]);
+  probe_hist_add_kernel<<<(int)clusters * kHistCluster, kHistThreads, smem,
+                          st>>>((const int*)x, n, nbins, (int*)out);
   return (int)cudaGetLastError();
 }
 
@@ -384,9 +486,8 @@ extern "C" int fk_probe_bits(const void* in, long long n, int mode, int width,
     if (err) return err;
   }
   if (n == 0) return 0;
-  // the pack takes 32 mask bytes a warp and step, the others one word a
-  // thread and step
-  const long long items = mode == 2 ? 32 * ((n + 31) / 32) : n;
+  // a thread and step take 32 mask bytes (pack) or one word
+  const long long items = mode == 2 ? (n + 31) / 32 : n;
   const long long blocks =
       min_ll((items + kBitsThreads - 1) / kBitsThreads, 8LL * sms);
   probe_bits_kernel<<<(int)blocks, kBitsThreads, 0, st>>>(in, n, mode, width,

@@ -76,7 +76,9 @@ def probe_hist(x: torch.Tensor, nbins: int, store: bool = False):
     Add mode: out[v] counts the values equal to v; values outside [0,
     nbins) are skipped. Store mode: out[x[i]] = i (the largest i where
     several share a value, as a loop in order leaves it), 0 where no value
-    lands. nbins is at most MAX_BINS, a block's shared memory."""
+    lands. nbins is at most MAX_BINS, a block's shared memory. x may be any
+    contiguous view: values before its first 16-byte boundary and after its
+    last whole 16 bytes take scalar loads inside the kernel."""
     _check_hist(x, nbins, store)
     if _device(x, "probe_hist") == "cpu":
         return probe_hist_ref(x, nbins, store)
@@ -186,7 +188,13 @@ def probe_bits(x: torch.Tensor, mode: str, width: int = 32):
     - "walk": int64 [1]: the sum over words of the indices of their set
       bits, walked by ctz (the run-end walk's shape);
     - "pack": x a bool mask of n bits -> int32 [n / width], bit b of word w
-      = x[width * w + b] (width 16 or 32; bit 31 lands in the sign)."""
+      = x[width * w + b] (width 16 or 32; bit 31 lands in the sign). The
+      kernel reads a mask byte as set when it is not 0, so a bool view of
+      uint8 bytes 2-255 packs as if they were 1.
+
+    Any contiguous view goes: a mask that does not start on a 16-byte
+    boundary, and its last bytes that do not fill 32, take scalar loads
+    inside the kernel."""
     _check_bits(x, mode, width)
     if _device(x, "probe_bits") == "cpu":
         return probe_bits_ref(x, mode, width)

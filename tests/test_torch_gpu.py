@@ -5,7 +5,9 @@ out-of-core job) on CUDA against the same calls on the CPU; the CLI's -M
 bound on a one-batch -p job; sharded_count in an NCCL world of one; the
 NCCL worlds of one rank a card; the entry points (entry's step,
 dryrun_multichip); the probe kernels (ops/probes.py) against their plain
-versions at the probes' shapes and at a large size, and the whole of
+versions at the probes' shapes, at a large size and at the edges of their
+16-byte loads (views off a 16-byte boundary, tails, uint8 bytes viewed as
+bool), and the whole of
 ``python -m fastk_tpu_torch.probes``.
 
 Imports no JAX, so that it runs on a machine with a card and without JAX:
@@ -561,6 +563,38 @@ def _probe_cases(dev):
                          t(np.array([trips], np.int32)), mode)))
     out.append(("probe_loop", "global, 1M", (
         ones, t(np.array([1_000_000], np.int32)), "global")))
+    # the 16-byte loads' edges: views off a 16-byte boundary, short tails,
+    # and the main path's scale with strays
+    vals = torch.randint(-5, 4100, ((1 << 20) + 8,), generator=g, device=dev,
+                         dtype=torch.int32)
+    for off in (1, 2, 3):
+        out += [("probe_hist", f"4096 bins, int offset {off}",
+                 (vals[off:off + (1 << 20) + off], 4096)),
+                ("probe_bits", f"clz, int offset {off}",
+                 (words[off:off + 4096 + off], "clz")),
+                ("probe_bits", f"walk, int offset {off}",
+                 (words[off:off + 4096 + off], "walk"))]
+    for n in (0, 1, 31, 33):
+        out += [("probe_hist", f"n = {n}", (vals[:n], 128)),
+                ("probe_hist", f"store, n = {n}", (vals[:n], 128, True)),
+                ("probe_bits", f"clz, n = {n}", (words[:n], "clz")),
+                ("probe_bits", f"walk, n = {n}", (words[:n], "walk"))]
+    for nbins in (16, 4096, 32768, probe_ops.MAX_BINS):
+        out.append(("probe_hist", f"2^26 into {nbins} with strays", (
+            torch.randint(-8, nbins + 8, (1 << 26,), generator=g, device=dev,
+                          dtype=torch.int32), nbins)))
+    out.append(("probe_hist", "store, one value repeated",
+                (torch.full((1 << 20,), 7, dtype=torch.int32, device=dev),
+                 16, True)))
+    mask = t(rng.integers(0, 2, (1 << 20) + 64).astype(bool))
+    for off in range(1, 16):
+        out += [("probe_bits", f"pack 32, byte offset {off}",
+                 (mask[off:off + (1 << 20)], "pack", 32)),
+                ("probe_bits", f"pack 16, byte offset {off}",
+                 (mask[off:off + (1 << 16) + 16], "pack", 16))]
+    for n, width in ((0, 16), (0, 32), (16, 16), (48, 16), (32, 32)):
+        out.append(("probe_bits", f"pack {width}, n = {n}",
+                     (mask[:n], "pack", width)))
     return out
 
 
@@ -577,6 +611,26 @@ def test_probe_kernels_match_plain(cuda_device):
         assert got.device.type == "cuda"
         assert got.dtype == want.dtype and torch.equal(got, want), (name,
                                                                     label)
+
+
+@pytest.mark.parametrize("off", [0, 3])
+@pytest.mark.parametrize("width", [16, 32])
+def test_probe_pack_reads_nonzero_bytes_as_set(cuda_device, width, off):
+    """uint8 bytes 0-255 viewed as bool pack as the plain version packs
+    u8 != 0: a byte is set when it is not 0, aligned or not, tail or not."""
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(width + off)
+    u8 = torch.randint(0, 256, ((1 << 20) + 64,), generator=g,
+                       device=cuda_device, dtype=torch.uint8)
+    u8[: 1 << 10] = 0  # some whole words of 0
+    n = (1 << 20) + (16 if width == 16 else 32)
+    view = u8[off:off + n]
+    before = probe_ops.probe_bits.launches
+    got = probe_ops.probe_bits(view.view(torch.bool), "pack", width)
+    assert probe_ops.probe_bits.launches == before + 1
+    want = probe_ops.probe_bits_ref(view != 0, "pack", width)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 def test_probes_module_on_card(cuda_device):

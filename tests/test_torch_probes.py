@@ -269,6 +269,66 @@ def test_loop_ref_periodic_sum_at_a_million():
     assert got.tolist() == [int(x[i & 3, i & 63].sum())]
 
 
+# ---- (f) the pack kernel's byte-to-bit step, replayed in numpy ------------
+
+def _kernel_constants():
+    """kLow7, kHigh, kGather and kGatherShift as csrc/probes.cu defines
+    them."""
+    with open(os.path.join(REPO, "fastk_tpu_torch", "csrc",
+                           "probes.cu")) as f:
+        src = f.read()
+    out = {}
+    for name in ("kLow7", "kHigh", "kGather", "kGatherShift"):
+        m = re.search(rf"constexpr (?:unsigned|int) {name} = "
+                      r"(0x[0-9a-fA-F]+|\d+)u?;", src)
+        assert m, name
+        out[name] = int(m.group(1), 0)
+    return out
+
+
+def _replay_pack(mask: np.ndarray, width: int) -> np.ndarray:
+    """The kernel's pack of whole 32-byte groups, step for step in uint32
+    arithmetic: nib4 on each little-endian 4-byte word, the eight nibbles of
+    a group (pack16 of its two 16-byte loads) shifted by 4k into one word,
+    which width 16 stores as its low and high halves."""
+    c = _kernel_constants()
+    w = mask.reshape(-1, 8, 4).copy().view("<u4")[..., 0].astype(np.uint64)
+    hi = (((w & c["kLow7"]) + c["kLow7"]) | w) & c["kHigh"]
+    nib = ((hi * c["kGather"]) & 0xFFFFFFFF) >> c["kGatherShift"]
+    assert nib.max() < 16
+    b = (nib << (4 * np.arange(8, dtype=np.uint64))).sum(1)
+    if width == 16:
+        b = np.stack([b & 0xFFFF, b >> 16], 1).reshape(-1)
+    return b.astype(np.uint32)
+
+
+def _byte_patterns(kind: str) -> np.ndarray:
+    if kind == "every 8 bytes of {0, 1, 2, 255}":
+        digits = (np.arange(4 ** 8)[:, None] >> (2 * np.arange(8))) & 3
+        return np.array([0, 1, 2, 255], np.uint8)[digits].reshape(-1)
+    # every byte value at every place of a word, the other three 0 or 255
+    out = []
+    for fill in (0, 255):
+        words = np.full((256, 4, 4), fill, np.uint8)
+        for j in range(4):
+            words[:, j, j] = np.arange(256)
+        out.append(words.reshape(-1))
+    return np.concatenate(out)
+
+
+@pytest.mark.parametrize("width", [16, 32])
+@pytest.mark.parametrize("kind", ["every 8 bytes of {0, 1, 2, 255}",
+                                  "every byte value at every place"])
+def test_pack_byte_step_replay(kind, width):
+    """Each mask byte becomes one bit, set when the byte is not 0, by the
+    kernel's own constants: the same words as the plain pack of bytes != 0."""
+    mask = _byte_patterns(kind)
+    assert mask.size % 32 == 0
+    want = ops.probe_bits_ref(torch.from_numpy(mask != 0), "pack", width)
+    assert np.array_equal(_replay_pack(mask, width),
+                          want.numpy().view(np.uint32))
+
+
 # ---- dispatch, arguments and the build ------------------------------------
 
 def test_other_devices_and_bad_arguments_raise():
