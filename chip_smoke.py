@@ -79,11 +79,15 @@ Phases, one line each; any failure raises and the script exits non-zero:
     bins, the walk and pack of the phase-4 batch's 2^21 start words, a
     carry over 2^14 blocks, 1M loop steps) and at the 16-byte loads' edges
     (views off a 16-byte boundary, tails, uint8 bytes viewed as bool),
-    timed beside its bound, its plain version and, for the histogram,
-    torch.bincount; the loop's ns a step and its latency floor at the SM
-    clock; the histogram at 4096 bins and on 2^21 values; and, with an
-    untracked copy of the parent's csrc/probes.cu at PARENT_PROBES, the
-    parent's histogram, pack and walk in turns with this tree's.
+    and the carry at every shape its tiles meet (1-D, one row of 2^26,
+    2^26 rows of one value, odd rows from an unaligned view, empty sides,
+    sums that wrap), timed beside its bound, its plain version and, for
+    the histogram and the carry, the library calls of the same function;
+    the loop's ns a step and its latency floor at the SM clock; the
+    histogram at 4096 bins and on 2^21 values; the carry at its three
+    shapes; and, with an untracked copy of the parent's csrc/probes.cu at
+    PARENT_PROBES, the parent's histogram, pack, walk and carry in turns
+    with this tree's.
 
 Run with arguments, the script is a rank of a phase-15c world
 (``fastk_tpu_torch/parallel/launch.py``).
@@ -1683,9 +1687,10 @@ PARENT_PROBES = "_archive/parent/fastk_tpu_torch/csrc/probes.cu"
 
 
 def parent_probes():
-    """(fk_probe_hist, fk_probe_bits) of the parent's probe kernels, built
-    by one nvcc from the untracked copy at PARENT_PROBES into
-    _archive/parent_build/, or None when there is no copy."""
+    """The ctypes library of the parent's probe kernels (fk_probe_hist,
+    fk_probe_bits, fk_probe_carry), built by one nvcc from the untracked
+    copy at PARENT_PROBES into _archive/parent_build/, or None when there
+    is no copy."""
     import ctypes
 
     from fastk_tpu_torch import _kernels
@@ -1704,12 +1709,14 @@ def parent_probes():
         raise RuntimeError(f"phase 16c: nvcc failed on the parent's "
                            f"kernels:\n{r.stdout}{r.stderr}")
     lib = ctypes.CDLL(so)
-    fns = lib.fk_probe_hist, lib.fk_probe_bits
-    for fn in fns:
+    ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    for name, args in (("fk_probe_hist", [ptr, i64, i32, i32, ptr, ptr]),
+                       ("fk_probe_bits", [ptr, i64, i32, i32, ptr, ptr]),
+                       ("fk_probe_carry", [ptr, i64, i64, ptr, ptr, ptr])):
+        fn = getattr(lib, name)
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
-    return fns
+        fn.argtypes = args
+    return lib
 
 
 def _busy_sm_mhz(fn, calls: int) -> float:
@@ -1739,7 +1746,10 @@ def probes_phase(words_np: np.ndarray) -> list:
        blocks of 1024, and the loop at 1M steps;
        Also the 16-byte loads' edges: views off a 16-byte boundary, a
        tail, and uint8 bytes 0-255 viewed as a bool mask (held against the
-       plain pack of bytes != 0);
+       plain pack of bytes != 0); and the carry at every shape its tiles
+       meet: 1-D, one row of 2^26, 2^26 rows of one value, rows of 3 and
+       1000 from a view off a 16-byte boundary, [0, k], [k, 0], and values
+       near +-2^31;
     c. each kernel's time at that scale (a launch in a CUDA graph), its
        bound, its plain version's time and, for the histogram,
        torch.bincount's; the loop's ns a step in each mode, and its
@@ -1747,9 +1757,12 @@ def probes_phase(words_np: np.ndarray) -> list:
        nvidia-smi reads while it runs; the histogram also at 4096 bins and
        on 2^21 values (its flush), and the time torch.amax takes to read
        the histogram's and the pack's input once. With a copy of the
-       parent's kernels at PARENT_PROBES, the parent's histogram, pack and
-       walk in turns with this tree's on the same tensors (parent, new,
-       new, parent).
+       parent's kernels at PARENT_PROBES, the parent's histogram, pack,
+       walk and carry in turns with this tree's on the same tensors
+       (parent, new, new, parent). The carry at its three shapes (2^14
+       rows of 1024, one row of 2^26, 2^26 rows of one value), each beside
+       its bound, its plain version and the library calls of the same
+       function, and torch.amax's read of the row shape's 64 MiB.
 
     Returns the kernels line's entries of the four kernels."""
     import torch
@@ -1786,6 +1799,14 @@ def probes_phase(words_np: np.ndarray) -> list:
     mask = ((words.long().unsqueeze(1) >> shifts) & 1).bool().reshape(-1)
     blocks = torch.randint(-1000, 1000, (PROBE_BLOCKS, 1024), generator=g,
                            device=dev, dtype=torch.int32)
+    wide = torch.randint(-(1 << 31), (1 << 31) - 1, (PROBE_VALUES,),
+                         generator=g, device=dev, dtype=torch.int32)
+    near = torch.where(
+        torch.randint(0, 2, (1 << 12, 1000), generator=g, device=dev) == 1,
+        (1 << 31) - 1 - torch.randint(0, 8, (1 << 12, 1000), generator=g,
+                                      device=dev),
+        -(1 << 31) + torch.randint(0, 8, (1 << 12, 1000), generator=g,
+                                   device=dev)).to(torch.int32)
     trips_1m = torch.tensor([1_000_000], dtype=torch.int32, device=dev)
     u8 = torch.randint(0, 256, (1 << 20,), generator=g, device=dev,
                        dtype=torch.uint8)
@@ -1833,7 +1854,17 @@ def probes_phase(words_np: np.ndarray) -> list:
                                  device=dev).reshape(4, 8, 128),)),
             ("P7", (torch.arange(4096, dtype=torch.int32,
                                  device=dev).reshape(4, 1024),)),
-            ("the large size", (blocks,))],
+            ("the large size", (blocks,)),
+            ("a 1-D x, the start words", (words,)),
+            ("one row of 2^26", (wide.reshape(1, -1),)),
+            ("2^26 rows of one value", (wide.reshape(-1, 1),)),
+            ("rows of 3 from value 1", (wide[1:1 + 3 * (1 << 22)]
+                                        .reshape(-1, 3),)),
+            ("rows of 1000 from value 3", (wide[3:3 + 1000 * 4096]
+                                           .reshape(-1, 1000),)),
+            ("[0, 1024]", (blocks[:0],)),
+            ("[1024, 0]", (wide[:0].reshape(1024, 0),)),
+            ("values near +-2^31", (near,))],
     }
     fns = {k.__name__: k for k in ops.KERNELS}
     refs = {name: getattr(ops, name + "_ref") for name in fns}
@@ -1847,7 +1878,8 @@ def probes_phase(words_np: np.ndarray) -> list:
                 raise AssertionError(f"phase 16b: {name} on {label}: shape "
                                      f"{tuple(got.shape)} on {got.device}, "
                                      f"plain {tuple(want.shape)}")
-            err = int((got.long() - want.long()).abs().max())
+            err = (int((got.long() - want.long()).abs().max())
+                   if got.numel() else 0)
             errs[name] = max(errs[name], err)
             if err:
                 raise AssertionError(f"phase 16b: {name} differs from its "
@@ -1914,19 +1946,36 @@ def probes_phase(words_np: np.ndarray) -> list:
                                     flush_vals.numel())[0]}
     mask_u8 = mask.view(torch.uint8)
     read_ms = {"probe_hist": _graph_ms(lambda: torch.amax(big_vals)),
-               "probe_bits": _graph_ms(lambda: torch.amax(mask_u8))}
+               "probe_bits": _graph_ms(lambda: torch.amax(mask_u8)),
+               "probe_carry": _graph_ms(lambda: torch.amax(blocks))}
     # the parent's kernels against this tree's, in turns
     from fastk_tpu_torch import _kernels
 
+    def stream():  # the stream a CUDA graph captures, at call time
+        return torch.cuda.current_stream().cuda_stream
+
     def p_call(fn, x, a, b, out):
         _kernels.check(fn(x.data_ptr(), x.numel(), a, b, out.data_ptr(),
-                          torch.cuda.current_stream().cuda_stream),
-                       "the parent's probe kernel")
+                          stream()), "the parent's probe kernel")
         return out
 
     def p_hist(x, nbins):
-        return lambda fns: p_call(fns[0], x, nbins, 0, torch.empty(
+        return lambda lib: p_call(lib.fk_probe_hist, x, nbins, 0, torch.empty(
             nbins, dtype=torch.int32, device=dev))
+
+    def p_carry(x):
+        """lib -> the parent's carry of x, with its own scratch: a status
+        word a row and the ticket."""
+        nb = x.shape[0]
+        scratch = torch.empty(nb + 1, dtype=torch.int64, device=dev)
+        out = torch.empty(nb, dtype=torch.int32, device=dev)
+
+        def run(lib):
+            _kernels.check(lib.fk_probe_carry(
+                x.data_ptr(), nb, x.numel() // nb, scratch.data_ptr(),
+                out.data_ptr(), stream()), "the parent's carry")
+            return out
+        return run
 
     parent = parent_probes()
     pairs = {
@@ -1936,12 +1985,17 @@ def probes_phase(words_np: np.ndarray) -> list:
                             lambda: ops.probe_hist(vals_4096, 4096)),
         "hist, 2^21 values": (p_hist(flush_vals, 32768),
                               lambda: ops.probe_hist(flush_vals, 32768)),
-        "pack": (lambda fns: p_call(fns[1], mask, 2, 32, torch.empty(
-            words.numel(), dtype=torch.int32, device=dev)),
+        "pack": (lambda lib: p_call(lib.fk_probe_bits, mask, 2, 32,
+                                    torch.empty(words.numel(),
+                                                dtype=torch.int32,
+                                                device=dev)),
                  lambda: ops.probe_bits(mask, "pack", 32)),
-        "walk": (lambda fns: p_call(fns[1], words, 1, 32, torch.empty(
-            1, dtype=torch.int64, device=dev)),
-                 lambda: ops.probe_bits(words, "walk"))}
+        "walk": (lambda lib: p_call(lib.fk_probe_bits, words, 1, 32,
+                                    torch.empty(1, dtype=torch.int64,
+                                                device=dev)),
+                 lambda: ops.probe_bits(words, "walk")),
+        "carry, 2^14 rows of 1024": (p_carry(blocks),
+                                     lambda: ops.probe_carry(blocks))}
     turns = {}
     for label, (p_fn, new_fn) in pairs.items():
         order = [("new", new_fn)]
@@ -1956,6 +2010,29 @@ def probes_phase(words_np: np.ndarray) -> list:
         for v, fn in order + order[::-1]:  # parent, new, new, parent
             t.setdefault(v, []).append(_graph_ms(fn))
         turns[label] = t
+    # the carry at its three shapes, beside its bound, its plain version
+    # and the library calls of the same function
+    carry_at = {
+        "2^14 rows of 1024": (blocks, {
+            "x.sum(1) + torch.cumsum (two calls)":
+                lambda x: torch.cumsum(x.sum(1), 0),
+            "torch.sum (P7's total)": torch.sum}),
+        "one row of 2^26": (wide.reshape(1, -1), {"torch.sum": torch.sum}),
+        "2^26 rows of one value": (wide.reshape(-1, 1), {
+            "torch.cumsum(x, 0, dtype=torch.int32)":
+                lambda x: torch.cumsum(x.reshape(-1), 0,
+                                       dtype=torch.int32)})}
+    carry = {}
+    for label, (x, libcalls) in carry_at.items():
+        ms = _graph_ms(lambda: ops.probe_carry(x))
+        bound_ms, bound_by = _bound(4 * x.numel() + 4 * x.shape[0],
+                                    x.numel())
+        carry[label] = dict(
+            ms=ms, bound_ms=bound_ms, bound_by=bound_by,
+            share=bound_ms / ms,
+            plain_ms=_cuda_ms(lambda: ops.probe_carry_ref(x)),
+            library_ms={k: _graph_ms(lambda: f(x))
+                        for k, f in libcalls.items()})
     # ns a step: ms a launch x 1e6 ns / 1e6 steps
     ns = {m: _graph_ms(lambda: ops.probe_loop(tables[m], trips_1m, m), n=2)
           * 1e6 / 1_000_000 for m in ops.LOOP_MODES}
@@ -1970,7 +2047,12 @@ def probes_phase(words_np: np.ndarray) -> list:
         if e["name"] in read_ms:
             e["read_ms"] = read_ms[e["name"]]
     entries[0]["turns"] = {k: v for k, v in turns.items() if "hist" in k}
-    entries[2]["turns"] = {k: v for k, v in turns.items() if "hist" not in k}
+    entries[2]["turns"] = {k: turns[k] for k in ("pack", "walk")}
+    entries[3]["turns"] = {k: v for k, v in turns.items() if "carry" in k}
+    entries[3]["shapes"] = carry
+    entries[3]["library_ms"] = carry["2^14 rows of 1024"]["library_ms"][
+        "x.sum(1) + torch.cumsum (two calls)"]
+    entries[3]["library_call"] = "x.sum(1) then torch.cumsum, two calls"
     print(f"phase 16a probes: {len(results)} probe lines OK on the card "
           f"(python -m fastk_tpu_torch.probes); launches {launches}",
           flush=True)
@@ -1996,6 +2078,12 @@ def probes_phase(words_np: np.ndarray) -> list:
           + "; one read by torch.amax: "
           + ", ".join(f"{k}'s input {v:.4f} ms" for k, v in read_ms.items()),
           flush=True)
+    print("phase 16c the carry (a launch in a CUDA graph): " + "; ".join(
+        f"{label} {c['ms']:.4f} ms (bound {c['bound_ms']:.4f} ms by "
+        f"{c['bound_by']}, {100 * c['share']:.1f} %; plain "
+        f"{c['plain_ms']:.4f} ms; "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in c["library_ms"].items())
+        + ")" for label, c in carry.items()), flush=True)
     print("phase 16c in turns (ms; the parent timed before and after "
           "this tree's kernel): "
           + "; ".join(f"{k}: " + ", ".join(

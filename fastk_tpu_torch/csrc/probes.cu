@@ -326,78 +326,274 @@ probe_bits_kernel(const void* __restrict__ in, long long n, int mode,
 // sums, carried in SMEM across a sequential grid) and _pallas_feas2.py:88
 // (P7, only the total).
 //
-// out[b] = the sum of x's rows 0..b (x is [nblocks, blen] int32; the sums
-// wrap as int32). CUDA blocks run in no order, so nothing carries over
-// from one to the next by itself. Each block takes its row from an atomic
-// ticket (so a block only ever waits on rows already taken by running
-// blocks, and the chain cannot deadlock), sums the row, and publishes the
-// sum at once with a flag (decoupled look-back): a 64-bit status word a
-// row, flag in bits 32-33 (1 the row's sum, 2 the inclusive prefix), value
-// in bits 0-31, written by one atomic exchange after a __threadfence.
-// Warp 0 then reads the 32 rows before its own at a time with volatile
-// loads, waits until all of them carry a flag, adds the values back to
-// and including the nearest prefix, and publishes its own prefix.
+// x is [nblocks, blen] int32, read as one flat stream of n = nblocks x blen
+// values; out[b] = the sum of its first (b + 1) x blen values, wrapped as
+// int32 (the arithmetic is unsigned): the stream's running sum, read at
+// each row's end.
 //
-// Bound: bytes, each value read once (at 2^14 rows of 1024, 64 MiB, 20 us
-// at 3.35 TB/s). The look-back keeps the serial chain short: a block waits
-// on the nearest published prefix, not on every earlier block's.
+// Bound: bytes, each value read once and each row's sum written once: at
+// 2^14 rows of 1024, 64 MiB (20 us at 3.35 TB/s); one row of 2^26, 256 MiB
+// (80 us); 2^26 rows of one value, 256 MiB read and 256 MiB written (160
+// us). So the kernel is a single-pass tiled scan of the flat stream with
+// decoupled look-back (Merrill and Garland, "Single-pass Parallel Prefix
+// Scan with Decoupled Look-back", 2016), its tiles of kCarryTile values
+// whatever blen is, so that the shape no longer decides the parallelism:
+// - the grid is the CTAs the card holds at once (an occupancy query, cached
+//   a device); each CTA takes tiles in turn by an atomic ticket, so it only
+//   ever waits on tiles that running CTAs hold, and the chain cannot
+//   deadlock. A CTA takes a ticket only when it is about to load that
+//   tile: a tile taken early holds back every later tile's look-back until
+//   its CTA comes to it.
+// - a tile (32 KiB) goes from device memory to shared memory as one TMA
+//   bulk copy (cp.async.bulk, its completion counted on an mbarrier), so
+//   the bytes in flight are bounded by shared memory (32 KiB a CTA),
+//   not by registers: kept in registers (16 values a thread), the tiles in
+//   flight came to 64 KiB an SM whatever their size. The stream starts at
+//   the 16-byte boundary at or before x: the first tile of a view off that
+//   boundary (x[1:] with an odd blen), which holds up to 3 values before
+//   x, and the last tile, which the stream does not fill, take scalar
+//   loads instead. A ring of two tiles a CTA, the next ticket taken and
+//   its copy started as soon as the current tile's prefix was out, ran
+//   slower: the CTAs of an SM already overlap one tile's load with
+//   another's scan.
+// - a warp owns kCarrySeg consecutive values of the tile and reads them in
+//   rounds of 32 x 4 (a 16-byte piece a lane, neighbouring lanes on
+//   neighbouring pieces, without bank conflicts): first to sum them, then,
+//   once the tile's prefix is known, to scan them (the lane's 4 values, a
+//   warp scan by shuffles, the round's total carried to the next). The
+//   CTA adds the warps' sums through shared memory and publishes the
+//   tile's sum at once. Warp 0 then reads the status words of the 32 tiles
+//   before its own at a time, waits until each down to the nearest
+//   published prefix carries a flag, adds them, and publishes the tile's
+//   inclusive prefix. A status word is 64 bits, the flag in bits 32-33 (1
+//   the tile's sum, 2 its inclusive prefix) and the value in bits 0-31.
+// - every row end (b + 1) x blen - 1 writes out[b] = the tile's exclusive
+//   prefix + the running sum there. With one value a row (out as large as
+//   x) a lane's four sums go out as one 16-byte store where they line up;
+//   rows of 128 values or more have at most one end a round, which the
+//   warp tracks from one division a tile (on the H100 9-13 % less time than
+//   a division a lane and round at rows of 128, 1000, 1024 and 2^26);
+//   shorter rows take a division a lane and round.
+//
+// The wrapper sizes the scratch for kCarryTile (ops/probes.py CARRY_TILE).
 
 constexpr int kCarryThreads = 256;
+constexpr int kCarryWarps = kCarryThreads / 32;
+constexpr int kCarryRounds = 8;  // a warp's 16-byte pieces a lane and tile
+constexpr int kCarrySeg = 128 * kCarryRounds;  // values a warp and tile
+constexpr long long kCarryTile = (long long)kCarryWarps * kCarrySeg;
+constexpr int kCarrySmem = 4 * (int)kCarryTile;  // a tile's bytes
 constexpr unsigned long long kAgg = 1ull << 32;
 constexpr unsigned long long kPre = 2ull << 32;
 
-__global__ void __launch_bounds__(kCarryThreads)
-probe_carry_kernel(const int* __restrict__ x, long long blen,
-                   unsigned long long* status, unsigned* ticket,
-                   int* __restrict__ out) {
-  __shared__ unsigned row_sh;
-  __shared__ unsigned part[kCarryThreads / 32];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  if (tid == 0) row_sh = atomicAdd(ticket, 1u);
-  __syncthreads();
-  const long long row = row_sh;
-  const int* xr = x + row * blen;
-  unsigned s = 0;
-  for (long long i = tid; i < blen; i += blockDim.x)
-    s += (unsigned)__ldg(xr + i);
-#pragma unroll
-  for (int off = 16; off; off >>= 1) s += __shfl_down_sync(kFull, s, off);
-  if (lane == 0) part[warp] = s;
-  __syncthreads();
-  if (warp != 0) return;
-  s = lane < kCarryThreads / 32 ? part[lane] : 0u;
-#pragma unroll
-  for (int off = 16; off; off >>= 1) s += __shfl_down_sync(kFull, s, off);
-  s = __shfl_sync(kFull, s, 0);  // the row's sum, in every lane
-  if (lane == 0) {
-    __threadfence();
-    const unsigned long long flag = row == 0 ? kPre + 0 : kAgg + 0;
-    atomicExch(status + row, flag | s);
-  }
+// A status word carries its own value, so no other data is ordered by it:
+// it is stored relaxed (a release store waits for the thread's earlier
+// stores to land) and polled relaxed.
+__device__ __forceinline__ void store_status(unsigned long long* p,
+                                             unsigned long long v) {
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v)
+               : "memory");
+}
+
+__device__ __forceinline__ unsigned long long load_relaxed(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p)
+               : "memory");
+  return v;
+}
+
+// The tile's bulk copy: one thread arms the mbarrier with the bytes to come
+// and starts the copy; every thread waits for the barrier's phase.
+__device__ __forceinline__ void bulk_load(unsigned dst, const void* src,
+                                          unsigned bytes, unsigned bar) {
+  asm volatile(
+      "fence.proxy.async.shared::cta;\n"
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%3], %2;\n"
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_wait(unsigned bar, unsigned parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n"
+      "}" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// The sum of the tiles before tile t (t > 0), read by warp 0 from their
+// status words, 32 tiles at a time (lane i reads tile pred - i) back to the
+// nearest inclusive prefix. A window waits until every tile down to that
+// prefix carries a flag.
+__device__ __forceinline__ unsigned look_back(
+    const unsigned long long* status, long long t, int lane) {
   unsigned excl = 0;
-  for (long long pred = row - 1; pred >= 0; pred -= 32) {
+  for (long long pred = t - 1;; pred -= 32) {
     const long long j = pred - lane;
-    unsigned long long st = kPre;  // rows before the first: a prefix of 0
-    do {
-      if (j >= 0) st = *(volatile unsigned long long*)(status + j);
-    } while (__any_sync(kFull, (st >> 32) == 0));
-    const unsigned pre = __ballot_sync(kFull, (st >> 32) == 2);
-    const int stop = pre ? __ffs(pre) - 1 : 31;  // the nearest prefix
+    // tiles before the first: a prefix of 0
+    unsigned long long st = j >= 0 ? load_relaxed(status + j) : kPre;
+    unsigned pre;
+    for (;;) {
+      pre = __ballot_sync(kFull, (st >> 32) == 2);
+      const unsigned wait = __ballot_sync(kFull, (st >> 32) == 0);
+      // lanes up to and including the nearest prefix (all 32 without one)
+      const unsigned need = pre ? (2u << (__ffs(pre) - 1)) - 1u : kFull;
+      if (!(wait & need)) break;
+      if ((st >> 32) == 0) st = load_relaxed(status + j);
+    }
+    const int stop = pre ? __ffs(pre) - 1 : 31;
     unsigned v = lane <= stop ? (unsigned)st : 0u;
 #pragma unroll
-    for (int off = 16; off; off >>= 1) v += __shfl_down_sync(kFull, v, off);
-    excl += __shfl_sync(kFull, v, 0);
-    if (pre) break;
-  }
-  if (lane == 0) {
-    const unsigned inc = excl + s;
-    if (row > 0) {
-      __threadfence();
-      atomicExch(status + row, kPre | inc);
-    }
-    out[row] = (int)inc;
+    for (int off = 16; off; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
+    excl += v;
+    if (pre) return excl;
   }
 }
+
+__global__ void __launch_bounds__(kCarryThreads)
+probe_carry_kernel(const int* __restrict__ x, long long n, long long blen,
+                   int skew, long long ntiles, unsigned long long* status,
+                   unsigned long long* ticket, int* __restrict__ out) {
+  extern __shared__ int4 tile_v[];  // the tile, kCarryTile values
+  __shared__ __align__(8) unsigned long long landed;  // the copy's mbarrier
+  __shared__ unsigned warp_sum[kCarryWarps];
+  __shared__ unsigned excl_sh;
+  __shared__ long long tile_sh;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const unsigned bar = (unsigned)__cvta_generic_to_shared(&landed);
+  // stream index j is x[j - skew]; xa is x's 16-byte boundary at or before
+  const int4* xa = (const int4*)(x - skew);
+  const long long end = n + skew;
+  const bool dense = blen == 1 && skew == 0 && ((uintptr_t)out & 15) == 0;
+  // a whole tile inside the stream goes by one bulk copy
+  auto whole = [&](long long t) {
+    return t * kCarryTile >= skew && (t + 1) * kCarryTile <= end;
+  };
+  if (tid == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(bar)
+                 : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  for (unsigned phase = 0;;) {
+    __syncthreads();  // every thread is done with the last tile
+    if (tid == 0) {
+      const long long t = (long long)atomicAdd(ticket, 1ull);
+      tile_sh = t;
+      if (t < ntiles && whole(t))
+        bulk_load((unsigned)__cvta_generic_to_shared(tile_v),
+                  xa + t * (kCarryTile / 4), kCarrySmem, bar);
+    }
+    __syncthreads();
+    const long long t = tile_sh;
+    if (t >= ntiles) return;
+    const long long j0 = t * kCarryTile;  // the tile's first stream index
+    if (whole(t)) {
+      bulk_wait(bar, phase);
+      phase ^= 1;
+    } else {
+      int* v = (int*)tile_v;
+      for (int i = tid; i < kCarryTile; i += kCarryThreads) {
+        const long long j = j0 + i;
+        v[i] = j >= skew && j < end ? __ldg(x + (j - skew)) : 0;
+      }
+      // before a later tile's bulk copy writes the same bytes
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      __syncthreads();
+    }
+    const int4* seg = tile_v + warp * (kCarrySeg / 4);
+    // the warp's sum
+    unsigned s = 0;
+#pragma unroll
+    for (int k = 0; k < kCarryRounds; ++k) {
+      const int4 v = seg[32 * k + lane];
+      s += (unsigned)v.x + (unsigned)v.y + (unsigned)v.z + (unsigned)v.w;
+    }
+#pragma unroll
+    for (int off = 16; off; off >>= 1) s += __shfl_xor_sync(kFull, s, off);
+    if (lane == 0) warp_sum[warp] = s;
+    __syncthreads();
+    unsigned base = 0, agg = 0;
+    for (int w = 0; w < kCarryWarps; ++w) {
+      const unsigned v = warp_sum[w];
+      base += w < warp ? v : 0u;
+      agg += v;
+    }
+    // publish the tile's sum at once, then its inclusive prefix
+    if (tid == 0) store_status(status + t, (t == 0 ? kPre : kAgg) | agg);
+    if (t > 0) {
+      if (warp == 0) {
+        const unsigned excl = look_back(status, t, lane);
+        if (lane == 0) {
+          store_status(status + t, kPre | (excl + agg));
+          excl_sh = excl;
+        }
+      }
+      __syncthreads();
+      base += excl_sh;
+    }
+    // the warp's values are the stream's [f0, f0 + kCarrySeg)
+    const long long f0 = j0 - skew + (long long)warp * kCarrySeg;
+    if (f0 >= n) continue;
+    // rows of 128 values or more: at most one row end a round, tracked by
+    // the warp (row b ends at e)
+    long long b = 0, e = 0;
+    if (blen >= 128) {
+      b = (f0 > 0 ? f0 : 0) / blen;
+      e = (b + 1) * blen - 1;
+    }
+#pragma unroll 2
+    for (int k = 0; k < kCarryRounds; ++k) {
+      const int4 v = seg[32 * k + lane];
+      const unsigned s1 = (unsigned)v.x, s2 = s1 + (unsigned)v.y,
+                     s3 = s2 + (unsigned)v.z, s4 = s3 + (unsigned)v.w;
+      unsigned inc = s4;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const unsigned u = __shfl_up_sync(kFull, inc, off);
+        if (lane >= off) inc += u;
+      }
+      const unsigned pre = base + inc - s4;  // before the lane's 4 values
+      base += __shfl_sync(kFull, inc, 31);
+      const unsigned sum[4] = {pre + s1, pre + s2, pre + s3, pre + s4};
+      const long long f = f0 + 128 * k + 4 * lane;  // the lane's first
+      if (blen >= 128) {
+        const long long round_end = f0 + 128 * k + 128;
+        if (e < round_end && e < n) {  // the round holds row b's end
+          const int at = (int)(e - (f0 + 128 * k));
+          if (lane == at >> 2)
+            out[b] = (int)(at & 2 ? (at & 1 ? sum[3] : sum[2])
+                                  : (at & 1 ? sum[1] : sum[0]));
+          ++b;
+          e += blen;
+        }
+      } else if (dense && f + 4 <= n) {
+        *(int4*)(out + f) = make_int4((int)sum[0], (int)sum[1], (int)sum[2],
+                                      (int)sum[3]);
+      } else if (f + 4 > 0 && f < n) {
+        const long long fc = f > 0 ? f : 0;
+        long long r = fc / blen;
+        long long at = (r + 1) * blen - 1 - f;  // its offset in sum
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          if (q == at && f + q < n) {
+            out[r++] = (int)sum[q];
+            at += blen;
+          }
+        }
+      }
+    }
+  }
+}
+
+bool g_carry_smem_set[kMaxDev];
+int g_carry_blocks[kMaxDev];  // CTAs of probe_carry_kernel an SM holds
 
 }  // namespace
 
@@ -495,19 +691,47 @@ extern "C" int fk_probe_bits(const void* in, long long n, int mode, int width,
   return (int)cudaGetLastError();
 }
 
-// x: int32 [nblocks, blen]; scratch: int64 [nblocks + 1], zeroed here (the
-// status words and the ticket); out: int32 [nblocks].
+// x: int32 [nblocks, blen], 4-byte aligned; scratch: int64 [ceil((nblocks x
+// blen + 3) / kCarryTile) + 1] at least, zeroed here (a status word a tile
+// and the ticket); out: int32 [nblocks].
 extern "C" int fk_probe_carry(const void* x, long long nblocks,
                               long long blen, void* scratch, void* out,
                               void* stream) {
-  if (nblocks < 0 || blen < 0 || nblocks > 0x7fffffffLL)
+  if (nblocks < 0 || blen < 0 || ((uintptr_t)x & 3) ||
+      (blen && nblocks > (1LL << 62) / blen))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  int err = (int)cudaMemsetAsync(scratch, 0, 8 * (nblocks + 1), st);
-  if (err) return err;
+  const long long n = nblocks * blen;
   if (nblocks == 0) return 0;
+  if (n == 0) return (int)cudaMemsetAsync(out, 0, 4 * nblocks, st);
+  const int skew = (int)(((uintptr_t)x & 15) >> 2);
+  const long long ntiles = (n + skew + kCarryTile - 1) / kCarryTile;
+  int err = (int)cudaMemsetAsync(scratch, 0, 8 * (ntiles + 1), st);
+  if (err) return err;
+  int sms = 0;
+  err = sm_count(&sms);
+  if (err) return err;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (!g_carry_smem_set[dev]) {
+    err = (int)cudaFuncSetAttribute(
+        probe_carry_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kCarrySmem);
+    if (err) return err;
+    g_carry_smem_set[dev] = true;
+  }
+  if (!g_carry_blocks[dev]) {
+    int blocks = 0;
+    err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, probe_carry_kernel, kCarryThreads, kCarrySmem);
+    if (err) return err;
+    if (blocks < 1) return (int)cudaErrorInvalidConfiguration;
+    g_carry_blocks[dev] = blocks;
+  }
   unsigned long long* status = (unsigned long long*)scratch;
-  probe_carry_kernel<<<(int)nblocks, kCarryThreads, 0, st>>>(
-      (const int*)x, blen, status, (unsigned*)(status + nblocks), (int*)out);
+  const long long grid = min_ll(ntiles, (long long)g_carry_blocks[dev] * sms);
+  probe_carry_kernel<<<(int)grid, kCarryThreads, kCarrySmem, st>>>(
+      (const int*)x, n, blen, skew, ntiles, status, status + ntiles,
+      (int*)out);
   return (int)cudaGetLastError();
 }

@@ -13,10 +13,13 @@ calls them at the probes' own shapes.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 MAX_BINS = 232448 // 4      # a block's shared memory on the H100, in int32
 MAX_SHARED_TABLE = 12288    # int32 entries the loop's shared mode copies
+CARRY_TILE = 8 * 8 * 128    # values a tile of the carry's scan (kCarryTile)
 LOOP_MODES = ("index", "static", "global", "shared")
 BITS_MODES = ("clz", "walk", "pack")
 
@@ -224,21 +227,35 @@ def _check_carry(x: torch.Tensor) -> None:
 def probe_carry_ref(x: torch.Tensor):
     """Plain torch version of probe_carry."""
     _check_carry(x)
-    sums = x.reshape(x.shape[0], -1).long().sum(1)
+    sums = x.reshape(x.shape[0], math.prod(x.shape[1:])).long().sum(1)
     return _wrap32(torch.cumsum(sums, 0))
+
+
+def carry_scratch(n: int) -> int:
+    """int64 words of the carry's scratch for n values: a status word for
+    each tile of the flat stream (which starts at the 16-byte boundary at
+    or before x, up to 3 values early) and the ticket."""
+    return (n + 3 + CARRY_TILE - 1) // CARRY_TILE + 1
 
 
 def probe_carry(x: torch.Tensor):
     """int32 [nblocks]: out[b] = the sum of x[0..b] (x int32 [nblocks,
     ...]; each block's values summed, then carried from block to block, as
-    int32 arithmetic wraps)."""
+    int32 arithmetic wraps).
+
+    The kernel scans x as one flat stream in tiles of CARRY_TILE values,
+    whatever the block's length, and reads out[b] at each block's end. Any
+    contiguous view goes: values before its first 16-byte boundary and
+    after its last whole share of a thread take scalar loads inside the
+    kernel."""
     _check_carry(x)
     if _device(x, "probe_carry") == "cpu":
         return probe_carry_ref(x)
     nblocks = x.shape[0]
     blen = x.numel() // nblocks if nblocks else 0
     out = torch.empty(nblocks, dtype=torch.int32, device=x.device)
-    scratch = torch.empty(nblocks + 1, dtype=torch.int64, device=x.device)
+    scratch = torch.empty(carry_scratch(x.numel()), dtype=torch.int64,
+                          device=x.device)
     _launch(probe_carry, "probe_carry", x.device, x.data_ptr(), nblocks,
             blen, scratch.data_ptr(), out.data_ptr())
     return out

@@ -7,7 +7,8 @@ NCCL worlds of one rank a card; the entry points (entry's step,
 dryrun_multichip); the probe kernels (ops/probes.py) against their plain
 versions at the probes' shapes, at a large size and at the edges of their
 16-byte loads (views off a 16-byte boundary, tails, uint8 bytes viewed as
-bool), and the whole of
+bool), the carry's tiles at every block length from 1 to 2^20, the walk
+with every set bit in one block's words, and the whole of
 ``python -m fastk_tpu_torch.probes``.
 
 Imports no JAX, so that it runs on a machine with a card and without JAX:
@@ -555,7 +556,24 @@ def _probe_cases(dev):
         ("probe_carry", "2^14 blocks wrapping", (torch.randint(
             -(1 << 30), 1 << 30, (1 << 14, 1024), generator=g, device=dev,
             dtype=torch.int32),)),
-        ("probe_carry", "one block", (ones,))]
+        ("probe_carry", "one block", (ones,)),
+        ("probe_carry", "1-D, one value a block", (words,)),
+        ("probe_carry", "one row of 2^26", (torch.randint(
+            -(1 << 31), (1 << 31) - 1, (1, 1 << 26), generator=g,
+            device=dev, dtype=torch.int32),)),
+        ("probe_carry", "2^26 rows of one value", (torch.randint(
+            -(1 << 31), (1 << 31) - 1, (1 << 26, 1), generator=g,
+            device=dev, dtype=torch.int32),)),
+        ("probe_carry", "[0, 5]", (words[:0].reshape(0, 5),)),
+        ("probe_carry", "[5, 0]", (words[:0].reshape(5, 0),)),
+        ("probe_carry", "values near +-2^31", (t(np.where(
+            rng.integers(0, 2, (1 << 12, 1000)) == 1, (1 << 31) - 1 -
+            rng.integers(0, 8, (1 << 12, 1000)), -(1 << 31) +
+            rng.integers(0, 8, (1 << 12, 1000))).astype(np.int32)),))]
+    for blen in (3, 1000):
+        nb = (1 << 20) // blen
+        out.append(("probe_carry", f"blen {blen} from value 1",
+                    (words[1:1 + nb * blen].reshape(nb, blen),)))
     for mode in probe_ops.LOOP_MODES:
         for trips in (0, 1, 37, 1000):
             out.append(("probe_loop", f"{mode}, {trips}",
@@ -631,6 +649,47 @@ def test_probe_pack_reads_nonzero_bytes_as_set(cuda_device, width, off):
     want = probe_ops.probe_bits_ref(view != 0, "pack", width)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("off", [0, 1, 3])
+@pytest.mark.parametrize("blen", [1, 3, 1000, 1024, 1 << 20])
+def test_probe_carry_matches_plain(cuda_device, blen, off):
+    """The carry's tiles against the plain version: about 2^22 wrapping
+    values in blocks of blen, from a view `off` values past a 16-byte
+    boundary (so the first tile starts with up to 3 scalar loads), and a
+    tail that does not fill a tile."""
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(blen + off)
+    nblocks = max(4, (1 << 22) // blen) + 1
+    base = torch.randint(-(1 << 31), (1 << 31) - 1, (nblocks * blen + 3,),
+                         generator=g, device=cuda_device, dtype=torch.int32)
+    x = base[off:off + nblocks * blen].reshape(nblocks, blen)
+    assert (x.data_ptr() % 16 == 0) == (off == 0)
+    before = probe_ops.probe_carry.launches
+    got = probe_ops.probe_carry(x)
+    assert probe_ops.probe_carry.launches == before + 1
+    want = probe_ops.probe_carry_ref(x)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+
+
+def test_probe_walk_in_one_block(cuda_device):
+    """The walk over 2^21 words whose set bits all lie in the first 256
+    words, which the first CTA walks whatever the grid: its warps' sums,
+    and no other, reach the result."""
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(21)
+    words = torch.zeros(1 << 21, dtype=torch.int32, device=cuda_device)
+    words[:256] = torch.randint(-(1 << 31), (1 << 31) - 1, (256,),
+                                generator=g, device=cuda_device,
+                                dtype=torch.int32)
+    words[0] = -1  # all 32 bits
+    before = probe_ops.probe_bits.launches
+    got = probe_ops.probe_bits(words, "walk")
+    assert probe_ops.probe_bits.launches == before + 1
+    want = probe_ops.probe_bits_ref(words, "walk")
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and int(want) > 0
 
 
 def test_probes_module_on_card(cuda_device):

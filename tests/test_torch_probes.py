@@ -55,6 +55,7 @@ JITTED = {("feas2", 3), ("feas3", 2)}
 # (script, launch index) of P14-D, whose TPU scratch is never zeroed
 SCRATCH_D = ("feas4", 3)
 INT32_MIN = int(np.iinfo(np.int32).min)
+M32 = (1 << 32) - 1
 
 
 def _lines(text):
@@ -245,6 +246,148 @@ def test_carry_ref_against_numpy(nblocks):
     want = np.cumsum(x.reshape(nblocks, -1).astype(np.int64).sum(1))
     want = ((want + (1 << 31)) % (1 << 32) - (1 << 31)).astype(np.int32)
     assert np.array_equal(ops.probe_carry(torch.from_numpy(x)).numpy(), want)
+
+
+def _wrapped_carry(x: np.ndarray) -> np.ndarray:
+    """numpy: the running sums of x's rows' sums, wrapped to int32."""
+    rows = x.reshape(x.shape[0], int(np.prod(x.shape[1:], dtype=np.int64)))
+    want = np.cumsum(rows.astype(np.int64).sum(1))
+    return ((want + (1 << 31)) % (1 << 32) - (1 << 31)).astype(np.int32)
+
+
+@pytest.mark.parametrize("shape,values", [
+    ((5000,), "any"), ((7, 0), "any"), ((0, 9), "any"), ((0,), "any"),
+    ((1, 1 << 20), "any"), ((333, 3), "any"), ((97, 1001), "any"),
+    ((3, 5, 7), "any"), ((64, 100), "near +-2^31"), ((1 << 12, 1), "any")])
+def test_carry_ref_at_any_shape(shape, values):
+    """The plain carry against numpy: 1-D, empty either side, one long
+    row, odd rows, and sums that wrap many times."""
+    rng = np.random.default_rng(len(shape) + sum(shape))
+    if values == "any":
+        x = rng.integers(-(1 << 31), 1 << 31, shape)
+    else:
+        x = np.where(rng.integers(0, 2, shape) == 1,
+                     (1 << 31) - 1 - rng.integers(0, 8, shape),
+                     -(1 << 31) + rng.integers(0, 8, shape))
+    x = x.astype(np.int32)
+    got = ops.probe_carry(torch.from_numpy(x)).numpy()
+    assert got.dtype == np.int32 and got.shape == (shape[0],)
+    assert np.array_equal(got, _wrapped_carry(x))
+
+
+def _carry_constants():
+    """kCarryThreads / 32 (the warps of a tile) and kCarryRounds (a
+    warp's rounds of 32 x 4 values) of csrc/probes.cu."""
+    with open(os.path.join(REPO, "fastk_tpu_torch", "csrc",
+                           "probes.cu")) as f:
+        src = f.read()
+    threads = re.search(r"constexpr int kCarryThreads = (\d+);", src)
+    rounds = re.search(r"constexpr int kCarryRounds = (\d+);", src)
+    assert threads and rounds
+    return int(threads.group(1)) // 32, int(rounds.group(1))
+
+
+def _tiled_carry(x: np.ndarray, skew: int, warps: int, rounds: int):
+    """The kernel's arithmetic, step for step in uint32: the flat stream,
+    from `skew` values before x (zeros), cut in tiles of warps x rounds x
+    128 values; the tile's exclusive prefix (the look-back's sum of the
+    tiles before) plus the warps' before it; each warp's rounds of 32
+    lanes x 4 values, a lane's running sum after the lanes' before it and
+    the rounds' before; and the row ends each round writes, found as the
+    kernel finds them (rows of 128 or more tracked from one division a
+    warp, shorter rows a division a lane and round). Returns the sums and
+    how many times each was written."""
+    nblocks = x.shape[0]
+    n = x.size
+    out = np.zeros(nblocks, np.int64)
+    written = np.zeros(nblocks, np.int64)
+    if n == 0:
+        return out.astype(np.int32), written
+    blen = n // nblocks
+    seg = 128 * rounds
+    tile = warps * seg
+    ntiles = (n + skew + tile - 1) // tile
+    stream = np.zeros(ntiles * tile, np.int64)
+    stream[skew:skew + n] = x.reshape(-1).view(np.uint32)
+    prefix = 0
+    for t in range(ntiles):
+        v = stream[t * tile:(t + 1) * tile].reshape(warps, rounds, 32, 4)
+        wsum = v.sum((1, 2, 3)) & M32
+        for w in range(warps):
+            base = (prefix + int(wsum[:w].sum())) & M32
+            f0 = t * tile - skew + w * seg
+            if f0 >= n:
+                continue
+            if blen >= 128:
+                b = max(f0, 0) // blen
+                e = (b + 1) * blen - 1
+            for k in range(rounds):
+                lane_sums = np.cumsum(v[w, k], axis=1) & M32
+                lane_pre = (base + np.cumsum(lane_sums[:, 3])
+                            - lane_sums[:, 3]) & M32
+                sums = (lane_pre[:, None] + lane_sums) & M32
+                base = (base + int(lane_sums[:, 3].sum())) & M32
+                if blen >= 128:
+                    if e < f0 + 128 * k + 128 and e < n:
+                        at = e - (f0 + 128 * k)
+                        out[b] = sums[at >> 2, at & 3]
+                        written[b] += 1
+                        b += 1
+                        e += blen
+                    continue
+                for lane in range(32):
+                    f = f0 + 128 * k + 4 * lane
+                    if f + 4 <= 0 or f >= n:
+                        continue
+                    r = max(f, 0) // blen
+                    at = (r + 1) * blen - 1 - f
+                    for q in range(4):
+                        if q == at and f + q < n:
+                            out[r] = sums[lane, q]
+                            written[r] += 1
+                            r += 1
+                            at += blen
+        prefix = (prefix + int(wsum.sum())) & M32
+    return out.astype(np.uint32).view(np.int32), written
+
+
+def test_carry_tile_matches_the_wrapper():
+    """The wrapper's CARRY_TILE is the kernel's tile, and its scratch holds
+    a status word for every tile at any skew, and the ticket."""
+    warps, rounds = _carry_constants()
+    assert ops.CARRY_TILE == warps * rounds * 128
+    for n in (1, 4093, 16384, 16385, 1 << 24, (1 << 26) + 5):
+        for skew in range(4):
+            ntiles = (n + skew + ops.CARRY_TILE - 1) // ops.CARRY_TILE
+            assert ops.carry_scratch(n) >= ntiles + 1
+
+
+CARRY_SWEEP = list(range(16))
+
+
+@pytest.mark.parametrize("seed", CARRY_SWEEP)
+def test_carry_tiles_model_the_plain_version(seed):
+    """A seeded sweep of (nblocks, blen, skew, tile): the kernel's tile
+    arithmetic, modelled in numpy, writes every row end once and gives the
+    plain version's sums; the kernel's own tile shape in every fourth."""
+    rng = np.random.default_rng(seed)
+    if seed % 4 == 3:
+        warps, rounds = _carry_constants()
+    else:
+        warps, rounds = (int(rng.choice([1, 2, 3])),
+                         int(rng.choice([1, 2, 4])))
+    tile = warps * rounds * 128
+    blen = int(rng.choice([0, 1, 2, 3, 4, 127, 128, 129, 1000, tile + 1,
+                           3 * tile]))
+    nblocks = int(rng.integers(0, 40000 // max(blen, 1) + 2))
+    if seed == 0:
+        nblocks, blen = 0, 7
+    skew = int(rng.integers(0, 4))
+    x = rng.integers(-(1 << 31), 1 << 31, (nblocks, blen)).astype(np.int32)
+    got, written = _tiled_carry(x, skew, warps, rounds)
+    want = ops.probe_carry_ref(torch.from_numpy(x)).numpy()
+    assert np.array_equal(got, want)
+    assert (written == (1 if nblocks * blen else 0)).all()
 
 
 @pytest.mark.parametrize("trips", [0, 1, 37])
