@@ -1688,7 +1688,8 @@ PARENT_PROBES = "_archive/parent/fastk_tpu_torch/csrc/probes.cu"
 
 def parent_probes():
     """The ctypes library of the parent's probe kernels (fk_probe_hist,
-    fk_probe_bits, fk_probe_carry), built by one nvcc from the untracked
+    fk_probe_loop, fk_probe_bits, fk_probe_carry), built by one nvcc from
+    the untracked
     copy at PARENT_PROBES into _archive/parent_build/, or None when there
     is no copy."""
     import ctypes
@@ -1711,6 +1712,7 @@ def parent_probes():
     lib = ctypes.CDLL(so)
     ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     for name, args in (("fk_probe_hist", [ptr, i64, i32, i32, ptr, ptr]),
+                       ("fk_probe_loop", [ptr, i32, i32, ptr, i32, ptr, ptr]),
                        ("fk_probe_bits", [ptr, i64, i32, i32, ptr, ptr]),
                        ("fk_probe_carry", [ptr, i64, i64, ptr, ptr, ptr])):
         fn = getattr(lib, name)
@@ -1719,19 +1721,98 @@ def parent_probes():
     return lib
 
 
-def _busy_sm_mhz(fn, calls: int) -> float:
-    """clocks.sm in MHz as nvidia-smi reads it while the card works through
-    `calls` queued calls of fn."""
+def _busy_sm_mhz(fn) -> float:
+    """clocks.sm in MHz as nvidia-smi reads it while the card runs fn()
+    over and over, until nvidia-smi has answered."""
     import torch
 
-    for _ in range(calls):
-        fn()
-    r = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm",
-                        "--format=csv,noheader,nounits"],
-                       capture_output=True, text=True, check=True,
-                       timeout=60)
-    torch.cuda.synchronize()
-    return float(r.stdout.split()[0])
+    p = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm",
+                          "--format=csv,noheader,nounits"],
+                         stdout=subprocess.PIPE, text=True)
+    try:
+        while p.poll() is None:
+            for _ in range(50):
+                fn()
+            torch.cuda.synchronize()
+        out = p.communicate(timeout=60)[0]
+    finally:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    return float(out.split()[0])
+
+
+# the lanes an H100 SM issues a clock: loads, and int32 arithmetic
+SM_LOAD_LANES = 32
+SM_INT32_LANES = 64
+
+
+def loop_bound(steps: int, mode: str, sms: int, sm_mhz: float) -> tuple:
+    """(bound ms, "operations") of probe_loop over `steps` steps: the larger
+    of the steps' loads (none in index mode) at sms x SM_LOAD_LANES a clock
+    and their int32 adds at sms x SM_INT32_LANES, at sm_mhz."""
+    hz = sm_mhz * 1e6
+    loads = 0 if mode == "index" else steps
+    return (1e3 * max(loads / (sms * SM_LOAD_LANES * hz),
+                      steps / (sms * SM_INT32_LANES * hz)), "operations")
+
+
+def _constant(name: str) -> int:
+    """A constexpr int of PROBE_SOURCE."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, PROBE_SOURCE)) as f:
+        m = re.search(rf"constexpr int {name} = (\d+);", f.read())
+    return int(m.group(1))
+
+
+_SASS_INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
+_SASS_BRA = re.compile(r"\bBRA\s+(?:`\()?(0x[0-9a-f]+|\.L_x_\d+)")
+_SASS_LABEL = re.compile(r"^\s*(\.L_x_\d+):")
+
+
+def loop_sass(so: str) -> dict:
+    """{mode: [(LDG, LDS, IADD3) of each loop]} of the probe_loop_kernel
+    instances in the library `so`, read from cuobjdump -sass: a loop is the
+    instructions from a backward branch's target to the branch."""
+    from fastk_tpu_torch import _kernels
+    from fastk_tpu_torch.ops import probes as ops
+
+    dump = subprocess.run(
+        [os.path.join(os.path.dirname(_kernels._nvcc()), "cuobjdump"),
+         "-sass", so], capture_output=True, text=True, check=True,
+        timeout=300).stdout
+    out = {}
+    for part in dump.split("Function : ")[1:]:
+        m = re.match(r"\S*probe_loop_kernelILi(\d)E", part)
+        if not m:
+            continue
+        insns, labels, pending = [], {}, []
+        for line in part.splitlines():
+            lab = _SASS_LABEL.match(line)
+            if lab:
+                pending.append(lab.group(1))
+                continue
+            ins = _SASS_INSN.search(line)
+            if ins:
+                addr = int(ins.group(1), 16)
+                labels.update((p, addr) for p in pending)
+                pending = []
+                insns.append((addr, ins.group(2)))
+        loops = []
+        for addr, text in insns:
+            bra = _SASS_BRA.search(text)
+            if not bra:
+                continue
+            tgt = bra.group(1)
+            tgt = labels.get(tgt) if tgt.startswith(".") else int(tgt, 16)
+            if tgt is None or tgt >= addr:
+                continue
+            names = [t.split()[1] if t.startswith("@") else t.split()[0]
+                     for a, t in insns if tgt <= a <= addr]
+            loops.append(tuple(sum(o.startswith(k) for o in names)
+                               for k in ("LDG", "LDS", "IADD3")))
+        out[ops.LOOP_MODES[int(m.group(1))]] = loops
+    return out
 
 
 def probes_phase(words_np: np.ndarray) -> list:
@@ -1740,29 +1821,35 @@ def probes_phase(words_np: np.ndarray) -> list:
     a. `python -m fastk_tpu_torch.probes` in process on the card, every
        probe line OK, with each kernel's launches counted from 0;
     b. each kernel against its plain version on the card, at the probes'
-       shapes and at the main path's scale: 2^26 values into 32768 bins, the
-       walk and clz over `words_np` (the start words of the phase-4 batch,
-       2^21 words), the pack of their 2^26 mask bits, a carry over 2^14
-       blocks of 1024, and the loop at 1M steps;
-       Also the 16-byte loads' edges: views off a 16-byte boundary, a
-       tail, and uint8 bytes 0-255 viewed as a bool mask (held against the
-       plain pack of bytes != 0); and the carry at every shape its tiles
-       meet: 1-D, one row of 2^26, 2^26 rows of one value, rows of 3 and
-       1000 from a view off a 16-byte boundary, [0, k], [k, 0], and values
-       near +-2^31;
+       shapes and at the main path's scale: 2^26 values into 32768 bins (add
+       and store mode), the walk and clz over `words_np` (the start words of
+       the phase-4 batch, 2^21 words), the pack of their 2^26 mask bits, a
+       carry over 2^14 blocks of 1024, and the loop at 1M and 2^30 steps in
+       each mode (and at 2^31 - 1 in index mode, on a 4 x 1024 table, and
+       with trips below 0). Also the 16-byte loads' edges: views off a
+       16-byte boundary, a tail, and uint8 bytes 0-255 viewed as a bool mask
+       (held against the plain pack of bytes != 0); and the carry at every
+       shape its tiles meet: 1-D, one row of 2^26, 2^26 rows of one value,
+       rows of 3 and 1000 from a view off a 16-byte boundary, [0, k], [k,
+       0], and values near +-2^31. The loop's SASS (loop_sass) holds
+       kLoopUnroll loads a pass in each load mode and kLoopUnroll IADD3s in
+       index mode;
     c. each kernel's time at that scale (a launch in a CUDA graph), its
        bound, its plain version's time and, for the histogram,
-       torch.bincount's; the loop's ns a step in each mode, and its
-       latency floor, one dependent step a cycle at the SM clock
-       nvidia-smi reads while it runs; the histogram also at 4096 bins and
-       on 2^21 values (its flush), and the time torch.amax takes to read
-       the histogram's and the pack's input once. With a copy of the
-       parent's kernels at PARENT_PROBES, the parent's histogram, pack,
-       walk and carry in turns with this tree's on the same tensors
-       (parent, new, new, parent). The carry at its three shapes (2^14
-       rows of 1024, one row of 2^26, 2^26 rows of one value), each beside
-       its bound, its plain version and the library calls of the same
-       function, and torch.amax's read of the row shape's 64 MiB.
+       torch.bincount's; store mode's time beside its bound, its plain
+       version and scatter_reduce_(..., "amax"); clz on the start words and
+       on 2^26 random words beside its bound; the loop in each mode at 1M
+       and 2^30 steps, its rate beside its bound (loop_bound, at the SM
+       clock nvidia-smi reads while it runs); the histogram also at 4096
+       bins and on 2^21 values (its flush), and the time torch.amax takes
+       to read the histogram's and the pack's input once. With a copy of
+       the parent's kernels at PARENT_PROBES, the parent's histogram (add
+       and store), loop (1M steps), pack, walk and carry in turns with this
+       tree's on the same tensors (parent, new, new, parent). The carry at
+       its three shapes (2^14 rows of 1024, one row of 2^26, 2^26 rows of
+       one value), each beside its bound, its plain version and the library
+       calls of the same function, and torch.amax's read of the row shape's
+       64 MiB.
 
     Returns the kernels line's entries of the four kernels."""
     import torch
@@ -1823,7 +1910,10 @@ def probes_phase(words_np: np.ndarray) -> list:
                        & 1023, 1024)),
             ("the large size, into 32768 bins", (big_vals, 32768)),
             ("an unaligned view with a tail",
-             (big_vals[3:(1 << 24) + 2], 32768))],
+             (big_vals[3:(1 << 24) + 2], 32768)),
+            ("store, the large size", (big_vals, 32768, True)),
+            ("store, an unaligned view with a tail",
+             (big_vals[3:(1 << 24) + 2], 32768, True))],
         "probe_loop": [
             ("P2", (t(np.full((1, 1), 37, np.int32)),
                     t(np.full(1, 37, np.int32)), "index")),
@@ -1866,6 +1956,18 @@ def probes_phase(words_np: np.ndarray) -> list:
             ("[1024, 0]", (wide[:0].reshape(1024, 0),)),
             ("values near +-2^31", (near,))],
     }
+    tables = {m: args[0] for (label, args), m in zip(
+        cases["probe_loop"][4:], ops.LOOP_MODES)}
+    trips_2p30 = torch.tensor([1 << 30], dtype=torch.int32, device=dev)
+    narrow = t(rng.integers(-9, 9, (4, 1024), np.int32))
+    cases["probe_loop"] += [
+        (f"2^30 {m}", (tables[m], trips_2p30, m)) for m in ops.LOOP_MODES] + [
+        ("index, 2^31 - 1", (tables["index"], t(np.array([(1 << 31) - 1],
+                                                         np.int32)), "index")),
+        ("global, 4 x 1024, 2^30", (narrow, trips_2p30, "global")),
+        ("shared, 4 x 1024, 2^30", (narrow, trips_2p30, "shared")),
+        ("global, trips -5", (tables["global"], t(np.array([-5], np.int32)),
+                              "global"))]
     fns = {k.__name__: k for k in ops.KERNELS}
     refs = {name: getattr(ops, name + "_ref") for name in fns}
     errs = {}
@@ -1888,22 +1990,33 @@ def probes_phase(words_np: np.ndarray) -> list:
     if not torch.equal(ops.probe_bits(mask, "pack", 32), words):
         raise AssertionError("phase 16b: the pack of the start words' mask "
                              "is not the start words")
+    # a load a step: each unrolled loop of the loop's instances, in SASS
+    from fastk_tpu_torch import _kernels
+
+    unroll = _constant("kLoopUnroll")
+    sass = loop_sass(_kernels.build())
+    for m, col in (("index", 2), ("static", 0), ("global", 0),
+                   ("shared", 1)):
+        if max((loop[col] for loop in sass.get(m, [])), default=0) < unroll:
+            raise AssertionError(f"phase 16b: probe_loop's {m} instance has "
+                                 f"no loop of {unroll} "
+                                 f"{('LDG', 'LDS', 'IADD3')[col]}s in its "
+                                 f"SASS (loops: {sass.get(m)})")
 
     # c. times at the main path's scale
     nset = int(mask.sum())
-    tables = {m: args[0] for (label, args), m in zip(
-        cases["probe_loop"][4:], ops.LOOP_MODES)}
-    # the loop's latency floor: one dependent step a cycle at the SM clock
-    sm_mhz = _busy_sm_mhz(lambda: ops.probe_loop(tables["global"], trips_1m,
-                                                 "global"), 200)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    # the SM clock under the loop, for its bound
+    sm_mhz = _busy_sm_mhz(lambda: ops.probe_loop(tables["global"],
+                                                 trips_2p30, "global"))
     scale = {
         "probe_hist": ((big_vals, 32768),
                        _bound(4 * PROBE_VALUES + 4 * 32768, PROBE_VALUES),
                        f"2^{PROBE_VALUES.bit_length() - 1} int32 values into "
                        "32768 bins"),
-        "probe_loop": ((tables["global"], trips_1m, "global"),
-                       _bound(4 * 1024 + 8, 1_000_000),
-                       "1M steps from device memory, one thread"),
+        "probe_loop": ((tables["global"], trips_2p30, "global"),
+                       loop_bound(1 << 30, "global", sms, sm_mhz),
+                       "2^30 steps from device memory, over the card"),
         "probe_bits": ((mask, "pack", 32),
                        _bound(mask.numel() + mask.numel() // 8, mask.numel()),
                        f"pack of {mask.numel()} mask bits into "
@@ -1916,8 +2029,7 @@ def probes_phase(words_np: np.ndarray) -> list:
     entries = []
     lines = []
     for name, (args, (bound_ms, bound_by), what) in scale.items():
-        n = 2 if name == "probe_loop" else 20
-        ms = _graph_ms(lambda: fns[name](*args), n=n)
+        ms = _graph_ms(lambda: fns[name](*args))
         plain_ms = _cuda_ms(lambda: refs[name](*args))
         library_ms = (_cuda_ms(lambda: torch.bincount(big_vals,
                                                       minlength=32768))
@@ -1935,6 +2047,42 @@ def probes_phase(words_np: np.ndarray) -> list:
                         if library_ms is not None else "") + ")")
     walk_ms = _graph_ms(lambda: ops.probe_bits(words, "walk"))
     walk_bound, walk_by = _bound(4 * words.numel() + 8, nset)
+    # store mode at 2^26 values, beside one library call of the same function
+    amax_idx = big_vals.long()
+    amax_src = torch.arange(PROBE_VALUES, dtype=torch.int64, device=dev)
+    amax_out = torch.zeros(32768, dtype=torch.int64, device=dev)
+    store_bound, store_by = _bound(4 * PROBE_VALUES + 4 * 32768, PROBE_VALUES)
+    store = dict(
+        ms=_graph_ms(lambda: ops.probe_hist(big_vals, 32768, True)),
+        bound_ms=store_bound, bound_by=store_by,
+        plain_ms=_cuda_ms(lambda: ops.probe_hist_ref(big_vals, 32768, True)),
+        library_ms=_cuda_ms(lambda: amax_out.scatter_reduce_(
+            0, amax_idx, amax_src, "amax")),
+        library_call='scatter_reduce_(0, idx, src, "amax"), int64')
+    del amax_idx, amax_src
+    # clz: 4 B read and 4 B written a word
+    clz = {}
+    for label, w in (("the 2^21 start words", words),
+                     ("2^26 random words", wide)):
+        ms = _graph_ms(lambda: ops.probe_bits(w, "clz"))
+        b, by = _bound(8 * w.numel(), w.numel())
+        clz[label] = dict(ms=ms, bound_ms=b, bound_by=by, share=b / ms)
+    clz["the 2^21 start words"]["plain_ms"] = _cuda_ms(
+        lambda: ops.probe_bits_ref(words, "clz"))
+    # the loop's rate over the card, each mode at 1M and 2^30 steps, and
+    # on a table narrower than its unroll (each step's own address)
+    loop_at = {}
+    for label, trips, steps, tabs in (
+            ("1M", trips_1m, 1_000_000, tables),
+            ("2^30", trips_2p30, 1 << 30, tables),
+            ("2^30, 4 x 1024", trips_2p30, 1 << 30,
+             {"global": narrow, "shared": narrow})):
+        for m, tab in tabs.items():
+            ms = _graph_ms(lambda: ops.probe_loop(tab, trips, m))
+            b, _ = loop_bound(steps, m, sms, sm_mhz)
+            loop_at[f"{m}, {label}"] = dict(
+                ms=ms, ns_per_step=ms * 1e6 / steps,
+                steps_per_s=steps / (ms * 1e-3), bound_ms=b, share=b / ms)
     # the histogram's other shapes (their times are the turns' below), and
     # one read of each input by torch
     vals_4096 = big_vals & 4095
@@ -1959,9 +2107,19 @@ def probes_phase(words_np: np.ndarray) -> list:
                           stream()), "the parent's probe kernel")
         return out
 
-    def p_hist(x, nbins):
-        return lambda lib: p_call(lib.fk_probe_hist, x, nbins, 0, torch.empty(
-            nbins, dtype=torch.int32, device=dev))
+    def p_hist(x, nbins, store=0):
+        return lambda lib: p_call(lib.fk_probe_hist, x, nbins, store,
+                                  torch.empty(nbins, dtype=torch.int32,
+                                              device=dev))
+
+    loop_out = torch.empty(1, dtype=torch.int32, device=dev)
+
+    def p_loop(lib):
+        """The parent's one-thread loop, 1M steps from device memory."""
+        _kernels.check(lib.fk_probe_loop(
+            tables["global"].data_ptr(), 8, 128, trips_1m.data_ptr(), 2,
+            loop_out.data_ptr(), stream()), "the parent's loop")
+        return loop_out
 
     def p_carry(x):
         """lib -> the parent's carry of x, with its own scratch: a status
@@ -1981,6 +2139,12 @@ def probes_phase(words_np: np.ndarray) -> list:
     pairs = {
         "hist, 32768 bins": (p_hist(big_vals, 32768),
                              lambda: ops.probe_hist(big_vals, 32768)),
+        "hist store, 32768 bins": (p_hist(big_vals, 32768, 1),
+                                   lambda: ops.probe_hist(big_vals, 32768,
+                                                          True)),
+        "loop, 1M from device memory": (
+            p_loop, lambda: ops.probe_loop(tables["global"], trips_1m,
+                                           "global")),
         "hist, 4096 bins": (p_hist(vals_4096, 4096),
                             lambda: ops.probe_hist(vals_4096, 4096)),
         "hist, 2^21 values": (p_hist(flush_vals, 32768),
@@ -2007,8 +2171,9 @@ def probes_phase(words_np: np.ndarray) -> list:
                                      "differs from this tree's")
             order.insert(0, ("parent", lambda: p_fn(parent)))
         t = {}
+        n = 2 if label.startswith("loop") else 20  # the parent's 8.8 ms
         for v, fn in order + order[::-1]:  # parent, new, new, parent
-            t.setdefault(v, []).append(_graph_ms(fn))
+            t.setdefault(v, []).append(_graph_ms(fn, n=n))
         turns[label] = t
     # the carry at its three shapes, beside its bound, its plain version
     # and the library calls of the same function
@@ -2033,20 +2198,18 @@ def probes_phase(words_np: np.ndarray) -> list:
             plain_ms=_cuda_ms(lambda: ops.probe_carry_ref(x)),
             library_ms={k: _graph_ms(lambda: f(x))
                         for k, f in libcalls.items()})
-    # ns a step: ms a launch x 1e6 ns / 1e6 steps
-    ns = {m: _graph_ms(lambda: ops.probe_loop(tables[m], trips_1m, m), n=2)
-          * 1e6 / 1_000_000 for m in ops.LOOP_MODES}
-    entries[1]["ns_per_step"] = ns
-    entries[1]["sm_mhz"] = sm_mhz
-    # one dependent step a cycle: 1M cycles at sm_mhz MHz, in ms
-    entries[1]["latency_floor_ms"] = floor_ms = 1e3 / sm_mhz
+    entries[1].update(sm_mhz=sm_mhz, sms=sms, rates=loop_at,
+                      threads=ops.loop_threads(tables["global"], "global"))
     entries[2]["walk_ms"] = walk_ms
     entries[2]["walk_bound_ms"] = walk_bound
     entries[0]["more_bound_ms"] = hist_bounds
     for e in entries:
         if e["name"] in read_ms:
             e["read_ms"] = read_ms[e["name"]]
+    entries[0]["store"] = store
     entries[0]["turns"] = {k: v for k, v in turns.items() if "hist" in k}
+    entries[1]["turns"] = {k: v for k, v in turns.items() if "loop" in k}
+    entries[2]["clz"] = clz
     entries[2]["turns"] = {k: turns[k] for k in ("pack", "walk")}
     entries[3]["turns"] = {k: v for k, v in turns.items() if "carry" in k}
     entries[3]["shapes"] = carry
@@ -2065,18 +2228,28 @@ def probes_phase(words_np: np.ndarray) -> list:
           + "; ".join(lines)
           + f"; probe_bits walk over the {words.numel()} start words ({nset} "
           f"set bits) "
-          f"{walk_ms:.4f} ms, bound {walk_bound:.4f} ms by {walk_by}; the "
-          f"loop a step: "
-          + ", ".join(f"{m} {v:.2f} ns" for m, v in ns.items())
-          + f", its latency floor {floor_ms:.4f} ms (one step a cycle at "
-          f"{sm_mhz:.0f} MHz, {100 * floor_ms / entries[1]['ms']:.1f} % of "
-          "the loop's time)"
+          f"{walk_ms:.4f} ms, bound {walk_bound:.4f} ms by {walk_by}; "
+          f"store mode {store['ms']:.4f} ms (bound {store_bound:.4f} ms by "
+          f"{store_by}, {100 * store_bound / store['ms']:.1f} %; plain "
+          f"{store['plain_ms']:.4f} ms; scatter_reduce_ amax "
+          f"{store['library_ms']:.4f} ms); clz "
+          + ", ".join(f"{k} {c['ms']:.4f} ms (bound {c['bound_ms']:.4f} ms "
+                      f"by {c['bound_by']}, {100 * c['share']:.1f} %)"
+                      for k, c in clz.items())
+          + f" (plain on the start words "
+          f"{clz['the 2^21 start words']['plain_ms']:.4f} ms)"
           + "; probe_" + ", ".join(
               f"{k} {turns[k]['new'][0]:.4f} ms (bound {b:.4f} ms, "
               f"{100 * b / turns[k]['new'][0]:.1f} %)"
               for k, b in hist_bounds.items())
           + "; one read by torch.amax: "
           + ", ".join(f"{k}'s input {v:.4f} ms" for k, v in read_ms.items()),
+          flush=True)
+    print(f"phase 16c the loop over the card ({entries[1]['threads']} "
+          f"threads; bound at {sm_mhz:.0f} MHz on {sms} SMs): " + "; ".join(
+              f"{k} {c['ms']:.4f} ms, {c['ns_per_step']:.6f} ns a step, "
+              f"{c['steps_per_s']:.4g} steps/s (bound {c['bound_ms']:.6f} "
+              f"ms, {100 * c['share']:.1f} %)" for k, c in loop_at.items()),
           flush=True)
     print("phase 16c the carry (a launch in a CUDA graph): " + "; ".join(
         f"{label} {c['ms']:.4f} ms (bound {c['bound_ms']:.4f} ms by "

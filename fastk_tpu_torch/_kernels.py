@@ -103,6 +103,9 @@ def load() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.restype = ctypes.c_int
         fn.argtypes = args
+    lib.fk_probe_loop_threads.restype = ctypes.c_int
+    lib.fk_probe_loop_threads.argtypes = [i32, i32, i32,
+                                          ctypes.POINTER(ctypes.c_int)]
     return lib
 
 

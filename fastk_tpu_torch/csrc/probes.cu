@@ -52,7 +52,10 @@ __host__ __device__ inline long long min_ll(long long a, long long b) {
 // Add mode: out[v] = the number of i with x[i] = v, for v in [0, nbins);
 // values outside are skipped. Store mode: out[x[i]] = i, where several i
 // share a value the largest (the last in order, as in a sequential loop),
-// by one global atomicMax a value. The launcher zeroes out first.
+// 0 where no value lands. One kernel serves both, the mode a template
+// parameter: store mode keeps maxima where add mode keeps counts (shared
+// atomicMax of the value's index, the cluster's max, a global atomicMax),
+// so it streams x as add mode does. The launcher zeroes out first.
 //
 // Bound on the H100: bytes. Each value is read once (4 B) and the histogram
 // written once; at 2^26 values that is 256 MiB, 80 us at 3.35 TB/s. A
@@ -60,7 +63,7 @@ __host__ __device__ inline long long min_ll(long long a, long long b) {
 // block gets without asking: the launcher raises the kernel's limit once a
 // device), so an SM holds one block of 1024 threads (fewer bins let two
 // share an SM). Three things
-// stand between that block and the bound, and the add kernel answers each:
+// stand between that block and the bound, and the kernel answers each:
 // - loads in flight: one 4-byte load a thread keeps 4 KiB in flight an SM,
 //   several times too little to stream at 3.35 TB/s. Each thread reads
 //   kHistUnroll 16-byte pieces at once (64 B; neighbouring threads on
@@ -70,12 +73,13 @@ __host__ __device__ inline long long min_ll(long long a, long long b) {
 // - the flush: with every bin of every block nonzero, adding each block's
 //   histogram to out is blocks x nbins global atomics onto the same bins.
 //   Blocks run as clusters of kHistCluster CTAs (Hopper's thread block
-//   clusters): after a cluster barrier, CTA r sums its r-th slice of the
-//   bins over the cluster's CTAs through distributed shared memory and adds
-//   each nonzero sum to out, so the flush issues nbins global atomics a
-//   cluster, kHistCluster times fewer. Clusters of 2 ran fastest at 2^26
-//   values on the H100: 4 and 8 cut the flush further (the fastest on 2^21
-//   values) but ran 4-6 % slower at 2^26, as if on 128 of its 132 SMs.
+//   clusters): after a cluster barrier, CTA r sums (store mode: takes the
+//   max of) its r-th slice of the bins over the cluster's CTAs through
+//   distributed shared memory and adds each nonzero result to out, so the
+//   flush issues nbins global atomics a cluster, kHistCluster times fewer.
+//   Clusters of 2 ran fastest at 2^26 values on the H100: 4 and 8 cut the
+//   flush further (the fastest on 2^21 values) but ran 4-6 % slower at
+//   2^26, as if on 128 of its 132 SMs.
 // - shared-atomic conflicts among a warp's lanes, which stay (uniform
 //   values spread them over the banks).
 // The grid is the clusters the card holds at once (each block strides over
@@ -86,21 +90,32 @@ constexpr int kHistUnroll = 4;   // 16-byte loads a thread keeps in flight
 constexpr int kHistCluster = 2;  // CTAs a cluster
 constexpr int kMaxSmem = 232448;  // the most a block may ask for on sm_90
 
-__device__ __forceinline__ void bin(int* sh, int v, int nbins) {
-  if ((unsigned)v < (unsigned)nbins) atomicAdd(sh + v, 1);
+// bins x[i] = v: add mode counts it, store mode keeps the largest i
+template <bool kStore>
+__device__ __forceinline__ void bin(int* sh, int v, long long i, int nbins) {
+  if ((unsigned)v < (unsigned)nbins) {
+    if constexpr (kStore)
+      atomicMax(sh + v, (int)i);
+    else
+      atomicAdd(sh + v, 1);
+  }
 }
 
-__device__ __forceinline__ void bin4(int* sh, int4 v, int nbins) {
-  bin(sh, v.x, nbins);
-  bin(sh, v.y, nbins);
-  bin(sh, v.z, nbins);
-  bin(sh, v.w, nbins);
+// the four values of a 16-byte piece, the first at index i
+template <bool kStore>
+__device__ __forceinline__ void bin4(int* sh, int4 v, long long i,
+                                     int nbins) {
+  bin<kStore>(sh, v.x, i, nbins);
+  bin<kStore>(sh, v.y, i + 1, nbins);
+  bin<kStore>(sh, v.z, i + 2, nbins);
+  bin<kStore>(sh, v.w, i + 3, nbins);
 }
 
+template <bool kStore>
 __global__ void __cluster_dims__(kHistCluster, 1, 1)
     __launch_bounds__(kHistThreads)
-probe_hist_add_kernel(const int* __restrict__ x, long long n, int nbins,
-                      int* __restrict__ out) {
+probe_hist_kernel(const int* __restrict__ x, long long n, int nbins,
+                  int* __restrict__ out) {
   extern __shared__ int sh[];
   cg::cluster_group cluster = cg::this_cluster();
   for (int j = threadIdx.x; j < nbins; j += kHistThreads) sh[j] = 0;
@@ -112,8 +127,9 @@ probe_hist_add_kernel(const int* __restrict__ x, long long n, int nbins,
       min_ll(n, (long long)(((16 - ((uintptr_t)x & 15)) & 15) >> 2));
   const long long nq = (n - head) >> 2;  // whole 16-byte pieces
   const long long tail = head + 4 * nq;  // the last n - tail values
-  if (tid < head) bin(sh, __ldg(x + tid), nbins);
-  if (tid < n - tail) bin(sh, __ldg(x + tail + tid), nbins);
+  if (tid < head) bin<kStore>(sh, __ldg(x + tid), tid, nbins);
+  if (tid < n - tail)
+    bin<kStore>(sh, __ldg(x + tail + tid), tail + tid, nbins);
   const int4* q = (const int4*)(x + head);
   long long i = tid;
   for (; i + (kHistUnroll - 1) * nt < nq; i += kHistUnroll * nt) {
@@ -121,9 +137,10 @@ probe_hist_add_kernel(const int* __restrict__ x, long long n, int nbins,
 #pragma unroll
     for (int k = 0; k < kHistUnroll; ++k) v[k] = __ldg(q + i + k * nt);
 #pragma unroll
-    for (int k = 0; k < kHistUnroll; ++k) bin4(sh, v[k], nbins);
+    for (int k = 0; k < kHistUnroll; ++k)
+      bin4<kStore>(sh, v[k], head + 4 * (i + k * nt), nbins);
   }
-  for (; i < nq; i += nt) bin4(sh, __ldg(q + i), nbins);
+  for (; i < nq; i += nt) bin4<kStore>(sh, __ldg(q + i), head + 4 * i, nbins);
   cluster.sync();  // every CTA of the cluster has binned its share
   const int r = (int)cluster.block_rank();
   const int lo = (int)((long long)nbins * r / kHistCluster);
@@ -131,29 +148,26 @@ probe_hist_add_kernel(const int* __restrict__ x, long long n, int nbins,
   for (int j = lo + threadIdx.x; j < hi; j += kHistThreads) {
     int c = 0;
 #pragma unroll
-    for (int k = 0; k < kHistCluster; ++k)
-      c += cluster.map_shared_rank(sh, k)[j];
-    if (c) atomicAdd(out + j, c);
+    for (int k = 0; k < kHistCluster; ++k) {
+      const int v = cluster.map_shared_rank(sh, k)[j];
+      c = kStore ? max(c, v) : c + v;
+    }
+    if (c) {
+      if constexpr (kStore)
+        atomicMax(out + j, c);
+      else
+        atomicAdd(out + j, c);
+    }
   }
   cluster.sync();  // no CTA leaves while another reads its bins
 }
 
-__global__ void __launch_bounds__(kHistThreads)
-probe_hist_store_kernel(const int* __restrict__ x, long long n, int nbins,
-                        int* __restrict__ out) {
-  const long long stride = (long long)gridDim.x * kHistThreads;
-  for (long long i = (long long)blockIdx.x * kHistThreads + threadIdx.x;
-       i < n; i += stride) {
-    const int v = __ldg(x + i);
-    if ((unsigned)v < (unsigned)nbins) atomicMax(out + v, (int)i);
-  }
-}
-
-bool g_hist_smem_set[kMaxDev];
-// clusters of probe_hist_add_kernel the device holds at once (0 = unread)
-// at the shared bytes of the last launch on each device
-int g_hist_clusters[kMaxDev];
-int g_hist_clusters_smem[kMaxDev];
+// per device and mode (add, store): the kernel's shared-memory limit
+// raised, and the clusters it holds at once (0 = unread) at the shared
+// bytes of the last launch
+bool g_hist_smem_set[kMaxDev][2];
+int g_hist_clusters[kMaxDev][2];
+int g_hist_clusters_smem[kMaxDev][2];
 
 // ---------------------------------------------------------------------------
 // fk_probe_loop: a scalar loop with a trip count read from device memory.
@@ -163,58 +177,199 @@ int g_hist_clusters_smem[kMaxDev];
 // _pallas_feas3.py:84 (P12, the same as a while loop) and
 // _pallas_feas4.py:28 kernels A-C (P14-A/B/C, 1000 iterations reading
 // x[0, 0], x[i & 7, i & 127] from device memory, and the same from shared
-// memory).
+// memory). The TPU probes measured the throughput of a scalar loop; on a
+// card of 132 SMs that is a card-wide rate.
 //
-// Modes: 0 acc += i; 1 acc += x[0] (static index, loaded again each
-// iteration by an asm load nvcc cannot hoist, as the TPU's scalar core read
-// its ref each step); 2 acc += x[(i & (rows-1)) * cols + (i & (cols-1))]
-// from device memory; 3 the same from a copy of x in shared memory. The sum
-// wraps as int32 arithmetic.
+// out[0] = the sum over steps i in [0, n), n = trips[0] (none when n <= 0),
+// of: mode 0, i; mode 1, x[0]; mode 2, x[(i & (rows-1)) * cols + (i &
+// (cols-1))] from device memory; mode 3, the same from the block's copy of
+// x in shared memory. The arithmetic is unsigned, so the sum wraps as int32
+// arithmetic does, in any order.
 //
-// Bound: latency, not the card's rates. One thread runs a chain of
-// dependent adds (and loads), so a step costs the latency of an add or a
-// load hit, which is what the probe measures (the TPU probe timed its
-// scalar core the same way); the least a step can take is one cycle at the
-// SM clock. An empty asm statement on the accumulator each step keeps nvcc
-// from replacing the loop by its closed form, and the trip count comes from
-// device memory, so nothing is folded at compile time.
+// Bound on the H100: operations. A load step is a 4-byte load and an int32
+// add, and an SM issues 32 lanes of loads and 64 of int32 arithmetic a
+// clock, so the loads bound the three load modes at 132 x 32 steps a clock
+// and the adds bound mode 0 at 132 x 64 (2^30 load steps: 0.128 ms at
+// 1980 MHz). The table (4 KiB at 8 x 128) stays in L1. So the kernel is a
+// persistent grid, the CTAs the card holds at once whatever n is, each
+// thread taking one contiguous run of steps:
+// - runs are a multiple of the table's period max(rows, cols) (and of the
+//   unroll) long and start at a multiple of it, so the 32 lanes of a warp
+//   read one address a step, a broadcast that moves one sector: the warp's
+//   load issues at the L1's full rate, and shared mode has no bank
+//   conflicts. A thread's steps still walk the table one address after
+//   the other, so no load repeats an address in one thread's loop;
+// - every step's load is an asm load at an address the compiler cannot
+//   prove constant: ptxas hoists a load of one known address out of a loop,
+//   an asm load of x[0] included, so mode 1 reaches entry 0 through masks
+//   of a kernel argument that is 0. Mode 0's sums pass through an empty
+//   asm each step, so no closed form replaces them;
+// - kLoopUnroll steps a thread in flight: their loads first, then their
+//   adds into kLoopUnroll sums;
+// - a step's address is arithmetic on the int32 pipe, which issues at
+//   twice the load rate: (i & (rows-1)) * cols + (i & (cols-1)) a step
+//   would cost more than the load. A pass of kLoopUnroll steps starts at a
+//   multiple of kLoopUnroll, so where kLoopUnroll divides rows and cols
+//   (8 x 128) its steps read entries e0 + k (cols + 1), e0 computed once a
+//   pass; narrower tables compute each step's entry;
+// - a CTA with no steps leaves before it copies the table; the rest reduce
+//   by warp shuffles, then across warps in shared memory, and add once a
+//   CTA to out (zeroed by the launcher) by an unsigned atomicAdd.
+// cuobjdump -sass of each mode's instance (chip_smoke.py's loop_sass, on
+// the built library for the H100) shows a load a step: ptxas unrolls two
+// passes, 16 LDG.E.CONSTANT (modes 1 and 2) or 16 LDS (mode 3) an
+// iteration of the loop over a wide table, and mode 0 adds once a step
+// (31 IADD3s and a VIADD an iteration of 32 steps): no load is hoisted and
+// no sum folded. Phase 16b fails if a loop holds fewer than kLoopUnroll.
 
-__global__ void probe_loop_kernel(const int* __restrict__ x, int rows,
-                                  int cols, const int* __restrict__ trips,
-                                  int mode, int* __restrict__ out) {
+constexpr int kLoopThreads = 256;
+constexpr int kLoopUnroll = 8;  // steps a thread keeps in flight
+constexpr int kLoopMaxTable = 48 * 1024;  // mode 3's table, in bytes
+
+// step i's table entry
+__device__ __forceinline__ int loop_idx(unsigned i, int rm, int cm,
+                                        int cols) {
+  return (int)((i & rm) * cols + (i & cm));
+}
+
+// one step's load of entry e: from x + e in device memory, or from the
+// shared address tab + 4 e
+template <int kMode>
+__device__ __forceinline__ unsigned loop_load(const int* x, unsigned tab,
+                                              int e) {
+  unsigned v;
+  if constexpr (kMode == 3)
+    asm volatile("ld.shared.u32 %0, [%1];" : "=r"(v) : "r"(tab + 4 * e));
+  else
+    asm volatile("ld.global.nc.u32 %0, [%1];" : "=r"(v) : "l"(x + e));
+  return v;
+}
+
+template <int kMode>
+__global__ void __launch_bounds__(kLoopThreads)
+probe_loop_kernel(const int* __restrict__ x, int rows, int cols, int zero,
+                  const int* __restrict__ trips, unsigned* __restrict__ out) {
   extern __shared__ int tab[];
-  if (mode == 3) {
-    for (int j = threadIdx.x; j < rows * cols; j += blockDim.x) tab[j] = x[j];
+  __shared__ unsigned warp_sum[kLoopThreads / 32];
+  const long long n = *trips;
+  // a thread's run: n over the grid's threads, rounded up to a multiple of
+  // q, the period and the unroll (both powers of two)
+  const long long q = max(max(rows, cols), kLoopUnroll);
+  const long long nt = (long long)gridDim.x * kLoopThreads;
+  const long long run = n > 0 ? ((n + nt - 1) / nt + q - 1) & ~(q - 1) : 0;
+  const long long cta_first = (long long)blockIdx.x * kLoopThreads * run;
+  if (cta_first >= n) return;  // the whole CTA has no steps
+  if constexpr (kMode == 3) {
+    for (int j = threadIdx.x; j < rows * cols; j += kLoopThreads)
+      tab[j] = x[j];
     __syncthreads();
   }
-  if (threadIdx.x != 0) return;
-  const int n = *trips;
-  const int rm = rows - 1, cm = cols - 1;
-  unsigned acc = 0;
-  if (mode == 0) {
-    for (int i = 0; i < n; ++i) {
-      acc += (unsigned)i;
-      asm volatile("" : "+r"(acc));
+  const unsigned tabs = (unsigned)__cvta_generic_to_shared(tab);
+  // mode 1 reads entry 0 through masks of `zero` (0, a kernel argument, so
+  // unknown to the compiler): ptxas hoists a load of an address it knows
+  // to be constant out of the loop, the asm load's included
+  const int rm = kMode == 1 ? zero : rows - 1;
+  const int cm = kMode == 1 ? zero : cols - 1;
+  const long long first = cta_first + (long long)threadIdx.x * run;
+  const int len = (int)max(0LL, min_ll(first + run, n) - first);
+  const int passes = len / kLoopUnroll;
+  unsigned i = (unsigned)min_ll(first, n);  // < 2^31, a multiple of q
+  unsigned acc[kLoopUnroll] = {};
+  if constexpr (kMode == 0) {
+    for (int m = passes; m > 0; --m, i += kLoopUnroll) {
+#pragma unroll
+      for (int k = 0; k < kLoopUnroll; ++k) {
+        acc[k] += i + k;
+        asm volatile("" : "+r"(acc[k]));
+      }
     }
-  } else if (mode == 1) {
-    for (int i = 0; i < n; ++i) {
-      unsigned v;
-      asm volatile("ld.global.nc.u32 %0, [%1];" : "=r"(v) : "l"(x));
-      acc += v;
-      asm volatile("" : "+r"(acc));
+  } else if (kMode == 1 || min(rows, cols) >= kLoopUnroll) {
+    // a pass starts at a multiple of kLoopUnroll, which divides rows and
+    // cols here: its steps i + k read entries e0 + k (cols + 1), e0 step
+    // i's (mode 1: entry 0 every step)
+    const int skip = kMode == 1 ? zero : cols + 1;
+    for (int m = passes; m > 0; --m, i += kLoopUnroll) {
+      const int e0 = loop_idx(i, rm, cm, cols);
+      unsigned v[kLoopUnroll];
+#pragma unroll
+      for (int k = 0; k < kLoopUnroll; ++k)
+        v[k] = loop_load<kMode>(x, tabs, e0 + k * skip);
+#pragma unroll
+      for (int k = 0; k < kLoopUnroll; ++k) acc[k] += v[k];
     }
-  } else if (mode == 2) {
-    for (int i = 0; i < n; ++i) {
-      acc += (unsigned)x[(i & rm) * cols + (i & cm)];
-      asm volatile("" : "+r"(acc));
-    }
-  } else {
-    for (int i = 0; i < n; ++i) {
-      acc += (unsigned)tab[(i & rm) * cols + (i & cm)];
-      asm volatile("" : "+r"(acc));
+  } else {  // a table narrower than the unroll: each step's own entry
+    for (int m = passes; m > 0; --m, i += kLoopUnroll) {
+      unsigned v[kLoopUnroll];
+#pragma unroll
+      for (int k = 0; k < kLoopUnroll; ++k)
+        v[k] = loop_load<kMode>(x, tabs, loop_idx(i + k, rm, cm, cols));
+#pragma unroll
+      for (int k = 0; k < kLoopUnroll; ++k) acc[k] += v[k];
     }
   }
-  out[0] = (int)acc;
+  for (int m = len % kLoopUnroll; m > 0; --m, ++i) {
+    if constexpr (kMode == 0) {
+      acc[0] += i;
+      asm volatile("" : "+r"(acc[0]));
+    } else {
+      acc[0] += loop_load<kMode>(x, tabs, loop_idx(i, rm, cm, cols));
+    }
+  }
+  unsigned s = 0;
+#pragma unroll
+  for (int k = 0; k < kLoopUnroll; ++k) s += acc[k];
+#pragma unroll
+  for (int off = 16; off; off >>= 1) s += __shfl_down_sync(kFull, s, off);
+  if ((threadIdx.x & 31) == 0) warp_sum[threadIdx.x >> 5] = s;
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    s = threadIdx.x < kLoopThreads / 32 ? warp_sum[threadIdx.x] : 0;
+#pragma unroll
+    for (int off = 16; off; off >>= 1) s += __shfl_down_sync(kFull, s, off);
+    if (threadIdx.x == 0 && s) atomicAdd(out, s);
+  }
+}
+
+// the loop kernel of each mode, and the CTAs of each an SM holds (0 =
+// unread) at the shared bytes of its last launch, per device
+using LoopKernel = void (*)(const int*, int, int, int, const int*,
+                            unsigned*);
+const LoopKernel kLoopKernels[4] = {probe_loop_kernel<0>, probe_loop_kernel<1>,
+                                    probe_loop_kernel<2>, probe_loop_kernel<3>};
+int g_loop_per_sm[kMaxDev][4];
+int g_loop_per_sm_smem[kMaxDev][4];
+
+// mode's grid for a rows x cols table (0, or the CUDA error): the CTAs an
+// SM holds at its shared bytes, times the SMs
+int loop_blocks(int rows, int cols, int mode, int* blocks) {
+  if (mode < 0 || mode > 3 || rows < 1 || cols < 1 ||
+      (rows & (rows - 1)) || (cols & (cols - 1)) ||
+      (mode == 3 && 4LL * rows * cols > kLoopMaxTable))
+    return (int)cudaErrorInvalidValue;
+  int sms = 0;
+  int err = sm_count(&sms);
+  if (err) return err;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  const int smem = mode == 3 ? 4 * rows * cols : 0;
+  if (!g_loop_per_sm[dev][mode] || g_loop_per_sm_smem[dev][mode] != smem) {
+    const void* kernel = (const void*)kLoopKernels[mode];
+    if (mode == 3) {  // the table, past 48 KB with the warps' sums
+      err = (int)cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          kLoopMaxTable);
+      if (err) return err;
+    }
+    int b = 0;
+    err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &b, kernel, kLoopThreads, smem);
+    if (err) return err;
+    if (b < 1) return (int)cudaErrorInvalidConfiguration;
+    g_loop_per_sm[dev][mode] = b;
+    g_loop_per_sm_smem[dev][mode] = smem;
+  }
+  *blocks = g_loop_per_sm[dev][mode] * sms;
+  return 0;
 }
 
 // ---------------------------------------------------------------------------
@@ -604,65 +759,76 @@ extern "C" int fk_probe_hist(const void* x, long long n, int nbins, int store,
   if (n < 0 || nbins < 1 || 4LL * nbins > kMaxSmem || ((uintptr_t)x & 3) ||
       (store && n > 0x7fffffffLL))
     return (int)cudaErrorInvalidValue;
-  int sms = 0;
-  int err = sm_count(&sms);
-  if (err) return err;
   int dev = 0;
-  cudaGetDevice(&dev);
+  int err = (int)cudaGetDevice(&dev);
+  if (err) return err;
+  if (dev < 0 || dev >= kMaxDev) return (int)cudaErrorInvalidDevice;
   cudaStream_t st = (cudaStream_t)stream;
   err = (int)cudaMemsetAsync(out, 0, 4LL * nbins, st);
   if (err) return err;
   if (n == 0) return 0;
-  if (store) {
-    const long long blocks =
-        min_ll((n + kHistThreads - 1) / kHistThreads, 2LL * sms);
-    probe_hist_store_kernel<<<(int)blocks, kHistThreads, 0, st>>>(
-        (const int*)x, n, nbins, (int*)out);
-    return (int)cudaGetLastError();
-  }
-  if (!g_hist_smem_set[dev]) {
+  const int m = store ? 1 : 0;
+  const void* kernel = store ? (const void*)probe_hist_kernel<true>
+                             : (const void*)probe_hist_kernel<false>;
+  if (!g_hist_smem_set[dev][m]) {
     err = (int)cudaFuncSetAttribute(
-        probe_hist_add_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kMaxSmem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
     if (err) return err;
-    g_hist_smem_set[dev] = true;
+    g_hist_smem_set[dev][m] = true;
   }
   const int smem = 4 * nbins;
-  if (!g_hist_clusters[dev] || g_hist_clusters_smem[dev] != smem) {
+  if (!g_hist_clusters[dev][m] || g_hist_clusters_smem[dev][m] != smem) {
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = dim3(kHistCluster);
     cfg.blockDim = dim3(kHistThreads);
     cfg.dynamicSmemBytes = smem;
     int clusters = 0;
-    err = (int)cudaOccupancyMaxActiveClusters(
-        &clusters, (const void*)probe_hist_add_kernel, &cfg);
+    err = (int)cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
     if (err) return err;
     if (clusters < 1) return (int)cudaErrorInvalidConfiguration;
-    g_hist_clusters[dev] = clusters;
-    g_hist_clusters_smem[dev] = smem;
+    g_hist_clusters[dev][m] = clusters;
+    g_hist_clusters_smem[dev][m] = smem;
   }
   // a cluster takes this many values a step of its threads
   const long long per = 4LL * kHistUnroll * kHistThreads * kHistCluster;
-  const long long clusters =
-      min_ll((n + per - 1) / per, (long long)g_hist_clusters[dev]);
-  probe_hist_add_kernel<<<(int)clusters * kHistCluster, kHistThreads, smem,
-                          st>>>((const int*)x, n, nbins, (int*)out);
+  const int grid = (int)min_ll((n + per - 1) / per,
+                               (long long)g_hist_clusters[dev][m]) *
+                   kHistCluster;
+  if (store)
+    probe_hist_kernel<true><<<grid, kHistThreads, smem, st>>>(
+        (const int*)x, n, nbins, (int*)out);
+  else
+    probe_hist_kernel<false><<<grid, kHistThreads, smem, st>>>(
+        (const int*)x, n, nbins, (int*)out);
   return (int)cudaGetLastError();
 }
 
-// x: int32 [rows, cols] (rows, cols powers of two); trips: int32 [1], the
-// trip count, read by the kernel; out: int32 [1]. mode 0-3 as above.
+// x: int32 [rows, cols] (rows, cols powers of two; at most kLoopMaxTable
+// bytes in mode 3); trips: int32 [1], the trip count, read by the kernel;
+// out: int32 [1], zeroed here. mode 0-3 as above.
 extern "C" int fk_probe_loop(const void* x, int rows, int cols,
                              const void* trips, int mode, void* out,
                              void* stream) {
-  if (mode < 0 || mode > 3 || rows < 1 || cols < 1 ||
-      (rows & (rows - 1)) || (cols & (cols - 1)) ||
-      (mode == 3 && 4LL * rows * cols > 48 * 1024))
-    return (int)cudaErrorInvalidValue;
-  const int smem = mode == 3 ? 4 * rows * cols : 0;
-  probe_loop_kernel<<<1, 32, smem, (cudaStream_t)stream>>>(
-      (const int*)x, rows, cols, (const int*)trips, mode, (int*)out);
+  int blocks = 0;
+  int err = loop_blocks(rows, cols, mode, &blocks);
+  if (err) return err;
+  cudaStream_t st = (cudaStream_t)stream;
+  err = (int)cudaMemsetAsync(out, 0, 4, st);
+  if (err) return err;
+  kLoopKernels[mode]<<<blocks, kLoopThreads, mode == 3 ? 4 * rows * cols : 0,
+                       st>>>((const int*)x, rows, cols, 0, (const int*)trips,
+                             (unsigned*)out);
   return (int)cudaGetLastError();
+}
+
+// *threads = the threads of fk_probe_loop's grid for these arguments, which
+// split the trip count among them
+extern "C" int fk_probe_loop_threads(int rows, int cols, int mode,
+                                     int* threads) {
+  int blocks = 0;
+  const int err = loop_blocks(rows, cols, mode, &blocks);
+  if (!err) *threads = blocks * kLoopThreads;
+  return err;
 }
 
 // in: int32 [n] words (modes 0, 1) or uint8 [n] mask bytes (mode 2); out:

@@ -133,15 +133,18 @@ def probe_loop_ref(table: torch.Tensor, trips: torch.Tensor, mode: str):
 
 
 def probe_loop(table: torch.Tensor, trips: torch.Tensor, mode: str):
-    """int32 [1]: one thread's loop of trips[0] steps (int32 [>=1], read by
-    the kernel from device memory), summing as int32 arithmetic does:
+    """int32 [1]: the sum over the steps i of [0, trips[0]) (int32 [>=1],
+    read by the kernel from device memory; none when it is 0 or less), as
+    int32 arithmetic wraps, of:
 
-    - "index": acc += i;
-    - "static": acc += table[0, 0], loaded again each step;
-    - "global": acc += table[i & (rows-1), i & (cols-1)] from device memory;
+    - "index": i;
+    - "static": table[0, 0], loaded again each step;
+    - "global": table[i & (rows-1), i & (cols-1)] from device memory;
     - "shared": the same from a copy of the table in shared memory.
 
-    table is int32 [rows, cols], rows and cols powers of two."""
+    table is int32 [rows, cols], rows and cols powers of two. The kernel
+    spreads the steps over the card (loop_threads), each step with its own
+    load and add."""
     _check_loop(table, trips, mode)
     if _device(table, "probe_loop") == "cpu":
         return probe_loop_ref(table, trips, mode)
@@ -153,6 +156,26 @@ def probe_loop(table: torch.Tensor, trips: torch.Tensor, mode: str):
 
 
 probe_loop.launches = 0
+
+
+def loop_threads(table: torch.Tensor, mode: str) -> int:
+    """The threads of probe_loop's grid for this CUDA table and mode (the
+    CTAs the card holds at once): each takes one contiguous run of the
+    steps, ceil(trips / threads) rounded up to a multiple of max(rows,
+    cols, 8)."""
+    import ctypes
+
+    from fastk_tpu_torch import _kernels
+
+    _check_loop(table, table.new_ones(1), mode)
+    if table.device.type != "cuda":
+        raise ValueError("loop_threads reads the grid of a CUDA table")
+    threads = ctypes.c_int(0)
+    with torch.cuda.device(table.device):
+        err = _kernels.load().fk_probe_loop_threads(
+            *table.shape, LOOP_MODES.index(mode), ctypes.byref(threads))
+    _kernels.check(err, "probe_loop's grid")
+    return threads.value
 
 
 # ---- clz, the ctz walk and the pack (P3, P9, P13, P14-E) ----------------

@@ -8,8 +8,10 @@ dryrun_multichip); the probe kernels (ops/probes.py) against their plain
 versions at the probes' shapes, at a large size and at the edges of their
 16-byte loads (views off a 16-byte boundary, tails, uint8 bytes viewed as
 bool), the carry's tiles at every block length from 1 to 2^20, the walk
-with every set bit in one block's words, and the whole of
-``python -m fastk_tpu_torch.probes``.
+with every set bit in one block's words, store mode at 2^26 values and on
+views with a tail, the loop's grid at trip counts around its thread count
+and at 2^31 - 1, on narrow and wide tables, and its SASS (a load a step),
+and the whole of ``python -m fastk_tpu_torch.probes``.
 
 Imports no JAX, so that it runs on a machine with a card and without JAX:
 
@@ -709,3 +711,87 @@ def test_probes_module_on_card(cuda_device):
     before = [k.launches for k in probe_ops.KERNELS]
     assert all(ok for _, ok, _ in probes.main("cuda"))
     assert all(k.launches > b for k, b in zip(probe_ops.KERNELS, before))
+
+
+@pytest.mark.parametrize("off,n", [(0, 1 << 26), (1, (1 << 24) + 2),
+                                   (2, (1 << 24) + 1), (3, (1 << 24) + 3)])
+def test_probe_store_mode_at_scale(cuda_device, off, n):
+    """Store mode (shared maxima, the cluster's max, a global atomicMax a
+    nonzero bin) against the plain version: 2^26 values with strays and
+    ties into 32768 bins, and views `off` values past a 16-byte boundary
+    with a tail; a bin hit only by index 0 stays 0."""
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(off + 26)
+    base = torch.randint(-8, 32776, (n + 3,), generator=g,
+                         device=cuda_device, dtype=torch.int32)
+    base[base == 5] = 6
+    base[off] = 5  # only index 0 of the view lands in bin 5
+    x = base[off:off + n]
+    assert (x.data_ptr() % 16 == 0) == (off == 0)
+    before = probe_ops.probe_hist.launches
+    got = probe_ops.probe_hist(x, 32768, store=True)
+    assert probe_ops.probe_hist.launches == before + 1
+    want = probe_ops.probe_hist_ref(x, 32768, store=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and int(want[5]) == 0
+
+
+LOOP_TRIPS = ["0", "1", "31", "threads - 1", "threads", "threads + 1",
+              "threads x 128 + 1", "1M", "-7", "2^31 - 1"]
+
+
+@pytest.mark.parametrize("trips", LOOP_TRIPS)
+@pytest.mark.parametrize("mode", probe_ops.LOOP_MODES)
+def test_probe_loop_over_the_card(cuda_device, mode, trips):
+    """The loop's persistent grid against the closed form, each mode, at
+    trip counts around the grid's thread count and at the int32 edge, on a
+    table of values near +-2^31 (the sum wraps)."""
+    rng = np.random.default_rng(len(trips))
+    table = torch.from_numpy(np.where(
+        rng.integers(0, 2, (8, 128)) == 1,
+        (1 << 31) - 1 - rng.integers(0, 8, (8, 128)),
+        -(1 << 31) + rng.integers(0, 8, (8, 128))).astype(np.int32)).to(
+            cuda_device)
+    threads = probe_ops.loop_threads(table, mode)
+    n = {"0": 0, "1": 1, "31": 31, "threads - 1": threads - 1,
+         "threads": threads, "threads + 1": threads + 1,
+         "threads x 128 + 1": threads * 128 + 1, "1M": 1_000_000,
+         "-7": -7, "2^31 - 1": (1 << 31) - 1}[trips]
+    t = torch.tensor([n], dtype=torch.int32, device=cuda_device)
+    before = probe_ops.probe_loop.launches
+    got = probe_ops.probe_loop(table, t, mode)
+    assert probe_ops.probe_loop.launches == before + 1
+    want = probe_ops.probe_loop_ref(table, t, mode)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (4, 1024), (1024, 4), (2, 8),
+                                   (64, 64), (4096, 2)])
+@pytest.mark.parametrize("mode", ["global", "shared"])
+def test_probe_loop_tables(cuda_device, mode, shape):
+    """Tables narrower than the loop's unroll (each step's own entry) and
+    wider (an entry a pass, then steps of cols + 1), 1M + 5 steps."""
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(shape[0] * 7 + shape[1])
+    table = torch.randint(-(1 << 31), (1 << 31) - 1, shape, generator=g,
+                          device=cuda_device, dtype=torch.int32)
+    t = torch.tensor([1_000_005], dtype=torch.int32, device=cuda_device)
+    got = probe_ops.probe_loop(table, t, mode)
+    want = probe_ops.probe_loop_ref(table, t, mode)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_probe_loop_sass_loads_a_step(cuda_device):
+    """Each unrolled loop of the loop kernel's instances holds its
+    kLoopUnroll loads (LDG in static and global mode, LDS in shared mode)
+    and index mode's kLoopUnroll IADD3s, in the built library's SASS."""
+    from fastk_tpu_torch import _kernels
+
+    unroll = chip_smoke._constant("kLoopUnroll")
+    sass = chip_smoke.loop_sass(_kernels.build())
+    assert set(sass) == set(probe_ops.LOOP_MODES)
+    for m, col in (("index", 2), ("static", 0), ("global", 0),
+                   ("shared", 1)):
+        assert max(loop[col] for loop in sass[m]) >= unroll, (m, sass[m])

@@ -25,6 +25,7 @@ import pytest
 import torch
 from jax.experimental import pallas as pl
 
+import chip_smoke
 from fastk_tpu_torch import _kernels
 from fastk_tpu_torch.ops import probes as ops
 from fastk_tpu_torch.probes import feas, feas2, feas3, feas4
@@ -275,16 +276,16 @@ def test_carry_ref_at_any_shape(shape, values):
     assert np.array_equal(got, _wrapped_carry(x))
 
 
+def _constants(*names):
+    """constexpr ints of csrc/probes.cu, by name."""
+    return [chip_smoke._constant(name) for name in names]
+
+
 def _carry_constants():
     """kCarryThreads / 32 (the warps of a tile) and kCarryRounds (a
     warp's rounds of 32 x 4 values) of csrc/probes.cu."""
-    with open(os.path.join(REPO, "fastk_tpu_torch", "csrc",
-                           "probes.cu")) as f:
-        src = f.read()
-    threads = re.search(r"constexpr int kCarryThreads = (\d+);", src)
-    rounds = re.search(r"constexpr int kCarryRounds = (\d+);", src)
-    assert threads and rounds
-    return int(threads.group(1)) // 32, int(rounds.group(1))
+    threads, rounds = _constants("kCarryThreads", "kCarryRounds")
+    return threads // 32, rounds
 
 
 def _tiled_carry(x: np.ndarray, skew: int, warps: int, rounds: int):
@@ -412,6 +413,259 @@ def test_loop_ref_periodic_sum_at_a_million():
     assert got.tolist() == [int(x[i & 3, i & 63].sum())]
 
 
+# ---- (g) store mode's and the loop's kernels, modelled in numpy -----------
+
+def _store_model(x, skew, nbins, threads, cluster, clusters):
+    """Store mode's kernel, step for step: the values of x (a view `skew`
+    values past a 16-byte boundary) split as the kernel splits them (up to
+    3 head values to threads 0-2, whole 16-byte pieces to thread piece %
+    nt, the last n % 4 to threads 0-2), each CTA's maxima of the indices
+    landing in each bin, the cluster's max of its CTAs', and the global
+    max over the clusters' nonzero maxima. Returns (out, the CTAs'
+    maxima)."""
+    n = x.size
+    nt = clusters * cluster * threads
+    assert nt >= 4
+    head = min(n, (4 - skew) % 4)
+    tail = head + 4 * ((n - head) // 4)
+    j = np.arange(n)
+    tid = np.where(j < head, j,
+                   np.where(j >= tail, j - tail, (j - head) // 4 % nt))
+    keep = (x >= 0) & (x < nbins)
+    ctas = np.zeros((clusters * cluster, nbins), np.int64)
+    np.maximum.at(ctas, (tid[keep] // threads, x[keep]), j[keep])
+    out = np.zeros(nbins, np.int64)
+    for c in ctas.reshape(clusters, cluster, nbins).max(1):
+        out[c != 0] = np.maximum(out[c != 0], c[c != 0])
+    return out.astype(np.int32), ctas
+
+
+STORE_SWEEP = list(range(16))
+
+
+@pytest.mark.parametrize("seed", STORE_SWEEP)
+def test_store_mode_model_matches_the_plain_version(seed):
+    """A seeded sweep of (n, skew, nbins, grid): ties, values outside [0,
+    nbins), views 1-3 values off a 16-byte boundary, and a bin that only
+    index 0 reaches (which stays 0). The kernel's own block and cluster in
+    every fourth."""
+    rng = np.random.default_rng(seed)
+    threads, cluster = (_constants("kHistThreads", "kHistCluster")
+                        if seed % 4 == 3 else
+                        (int(rng.choice([4, 32, 256])),
+                         int(rng.choice([1, 2, 4]))))
+    clusters = int(rng.choice([1, 2, 3]))
+    nbins = int(rng.choice([1, 16, 128, 4096]))
+    n = int(rng.choice([0, 1, 3, 5, 999, 20000]))
+    skew = seed % 4
+    x = rng.integers(-3, nbins + 3, n).astype(np.int32)
+    if n > 1 and nbins > 1:  # only index 0 lands in bin `lone`
+        lone = int(rng.integers(0, nbins))
+        x[x == lone] = -1
+        x[0] = lone
+    base = torch.from_numpy(np.concatenate([np.zeros(skew, np.int32), x]))
+    want = ops.probe_hist_ref(base[skew:], nbins, store=True).numpy()
+    got, ctas = _store_model(x, skew, nbins, threads, cluster, clusters)
+    assert np.array_equal(got, want)
+    assert (ctas.max(0) == got).all()
+    if n > 1 and nbins > 1:
+        assert got[lone] == 0
+
+
+def test_store_mode_model_gives_the_jax_probe(jax_runs, monkeypatch):
+    """P10 (out[x[i]] = i) through the store model at the kernel's grid
+    for 16 values, one cluster, against the TPU probe's recorded output."""
+    threads, cluster = _constants("kHistThreads", "kHistCluster")
+
+    def model(x, nbins, store=False):
+        assert store
+        return torch.from_numpy(_store_model(
+            x.numpy(), x.data_ptr() // 4 % 4, nbins, threads, cluster, 1)[0])
+
+    monkeypatch.setattr(feas2, "probe_hist", model)
+    inputs, want = jax_runs["feas2"][1][5]
+    got = feas2.LAUNCHES[5](*(torch.from_numpy(np.array(a)) for a in inputs))
+    assert np.array_equal(got.numpy(), want)
+
+
+def _loop_entries(rows, cols, start, length, unroll):
+    """The table entries the loop kernel reads for the steps [start, start
+    + length) of a run (start a multiple of max(rows, cols, unroll)), as it
+    computes them: passes of `unroll` steps, each from its first step's
+    entry e0 and then e0 + k (cols + 1) where unroll divides rows and cols,
+    else each step's own; the last length % unroll steps each their own."""
+    def entry(i):
+        return (i & (rows - 1)) * cols + (i & (cols - 1))
+
+    passes = length // unroll
+    first = start + unroll * np.arange(passes, dtype=np.int64)
+    if min(rows, cols) >= unroll:
+        e = entry(first)[:, None] + np.arange(unroll) * (cols + 1)
+    else:
+        e = entry(first[:, None] + np.arange(unroll))
+    rest = start + unroll * passes + np.arange(length % unroll)
+    return np.concatenate([e.reshape(-1), entry(rest)])
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (1, 4096), (2, 8), (4, 1024),
+                                   (8, 8), (8, 128), (128, 8), (64, 64)])
+def test_loop_passes_read_each_steps_entry(shape):
+    """A run's passes read, step by step, the entry (i & (rows-1)) * cols
+    + (i & (cols-1)) of their own step i."""
+    unroll = chip_smoke._constant("kLoopUnroll")
+    rows, cols = shape
+    q = max(rows, cols, unroll)
+    for start in (0, q, 37 * q):
+        for length in (0, 1, unroll - 1, unroll, q, 3 * q + 5):
+            i = start + np.arange(length)
+            want = (i & (rows - 1)) * cols + (i & (cols - 1))
+            got = _loop_entries(rows, cols, start, length, unroll)
+            assert np.array_equal(got, want), (start, length)
+
+
+def _loop_model(table, n, mode, threads):
+    """The loop kernel over a grid of `threads`, in numpy: each thread's run
+    of ceil(n / threads) steps rounded up to a multiple of q = max(rows,
+    cols, kLoopUnroll), from thread * run; each run's sum in uint32 from
+    the entries its passes read (a run of whole q blocks from q's); the
+    CTAs' sums of their kLoopThreads threads; their wrapped total, as
+    int32. Returns (total, runs' starts, lengths)."""
+    threads_cta, unroll = _constants("kLoopThreads", "kLoopUnroll")
+    assert threads % threads_cta == 0
+    rows, cols = table.shape
+    flat = table.reshape(-1).astype(np.int64)
+    q = max(rows, cols, unroll)
+    run = (-(-n // threads) + q - 1) // q * q if n > 0 else 0
+    starts = np.arange(threads, dtype=np.int64) * run
+    lens = np.clip(n - starts, 0, run)
+    if mode == "index":
+        sums = (2 * starts + lens - 1) * lens // 2
+    elif mode == "static":
+        sums = lens * flat[0]
+    else:
+        block = flat[_loop_entries(rows, cols, 0, q, unroll)].sum()
+        sums = lens // q * block
+        part = lens % q != 0  # at most one thread, the last with steps
+        assert part.sum() <= 1
+        for t in np.flatnonzero(part):
+            sums[t] = flat[_loop_entries(rows, cols, starts[t], lens[t],
+                                         unroll)].sum()
+    ctas = (sums % (1 << 32)).reshape(-1, threads_cta).sum(1) % (1 << 32)
+    total = int(ctas.sum() % (1 << 32))
+    return total - (1 << 32) * (total >> 31), starts, lens
+
+
+# 270336: the H100's grid, 132 SMs x 8 CTAs of 256; 256: a single CTA
+LOOP_GRIDS = [256, 270336]
+LOOP_TRIPS = ["0", "1", "31", "threads - 1", "threads", "threads + 1",
+              "threads x q + 1", "1M", "-5", "2^31 - 1"]
+
+
+def _trips(name, threads, q):
+    return {"0": 0, "1": 1, "31": 31, "threads - 1": threads - 1,
+            "threads": threads, "threads + 1": threads + 1,
+            "threads x q + 1": threads * q + 1, "1M": 1_000_000, "-5": -5,
+            "2^31 - 1": (1 << 31) - 1}[name]
+
+
+@pytest.mark.parametrize("threads", LOOP_GRIDS)
+@pytest.mark.parametrize("trips", LOOP_TRIPS)
+@pytest.mark.parametrize("mode", ops.LOOP_MODES)
+def test_loop_model_matches_the_plain_version(mode, trips, threads):
+    """Each thread's share of the steps for a grid: runs that start at a
+    multiple of q and cover [0, trips) once; their sums, wrapped at the
+    int32 edges (a table of values near +-2^31), equal the plain closed
+    form."""
+    unroll = chip_smoke._constant("kLoopUnroll")
+    rng = np.random.default_rng(len(trips) + threads)
+    table = np.where(rng.integers(0, 2, (8, 128)) == 1,
+                     (1 << 31) - 1 - rng.integers(0, 8, (8, 128)),
+                     -(1 << 31) + rng.integers(0, 8, (8, 128))
+                     ).astype(np.int32)
+    n = _trips(trips, threads, max(128, unroll))
+    got, starts, lens = _loop_model(table, n, mode, threads)
+    assert lens.sum() == max(n, 0)
+    assert (starts % max(128, unroll) == 0).all()
+    assert (lens[1:] <= lens[:-1]).all()  # runs in order, no gap
+    want = ops.probe_loop_ref(torch.from_numpy(table),
+                              torch.tensor([n], dtype=torch.int32), mode)
+    assert want.tolist() == [got]
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (4, 1024), (2, 8), (64, 64)])
+def test_loop_model_on_other_tables(shape):
+    """Narrow tables (each step's own entry) and wide ones, against a numpy
+    loop over every step."""
+    rng = np.random.default_rng(shape[0])
+    table = rng.integers(-(1 << 31), 1 << 31, shape).astype(np.int32)
+    n = 300_007
+    i = np.arange(n)
+    step = table[i & (shape[0] - 1), i & (shape[1] - 1)].astype(np.int64)
+    want = int(step.sum() % (1 << 32))
+    want -= (1 << 32) * (want >> 31)
+    for threads in LOOP_GRIDS:
+        assert _loop_model(table, n, "global", threads)[0] == want
+
+
+LOOP_LAUNCHES = [("feas", 1), ("feas4", 0), ("feas4", 1), ("feas4", 2)]
+
+
+@pytest.mark.parametrize("threads", LOOP_GRIDS)
+@pytest.mark.parametrize("script,i", LOOP_LAUNCHES,
+                         ids=[f"{s}-{i}" for s, i in LOOP_LAUNCHES])
+def test_loop_model_gives_the_jax_probes(jax_runs, monkeypatch, script, i,
+                                         threads):
+    """P2 and P14-A/B/C through the loop model against the TPU probes'
+    recorded outputs."""
+    def model(table, trips, mode):
+        got = _loop_model(table.numpy(), int(trips.reshape(-1)[0]), mode,
+                          threads)[0]
+        return torch.tensor([got], dtype=torch.int32)
+
+    monkeypatch.setattr(SCRIPTS[script], "probe_loop", model)
+    inputs, want = jax_runs[script][1][i]
+    got = SCRIPTS[script].LAUNCHES[i](*(torch.from_numpy(np.array(a))
+                                        for a in inputs))
+    assert np.array_equal(got.numpy().astype(np.int64),
+                          want.astype(np.int64))
+
+
+_SASS = """
+\tcode for sm_90a
+\t\tFunction : _ZN12_GLOBAL__N_117probe_loop_kernelILi2EEEvPKiiiiS1_Pj
+\t.headerflags\t@"EF_CUDA_SM90"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;  /* 0x000 */
+        /*0010*/                   LDG.E.CONSTANT R2, desc[UR4][R4.64] ;
+        /*0020*/                   LDG.E.CONSTANT R3, desc[UR4][R4.64+0x4] ;
+        /*0030*/                   IADD3 R6, R2, R6, R3 ;
+        /*0040*/               @P0 BRA 0x10 ;
+        /*0050*/                   BRA 0x60 ;
+        /*0060*/                   EXIT ;
+\t\tFunction : _ZN12_GLOBAL__N_117probe_loop_kernelILi3EEEvPKiiiiS1_Pj
+        /*0000*/                   S2R R0, SR_TID.X ;
+.L_x_1:
+        /*0010*/                   LDS R2, [R0] ;
+        /*0020*/                   LDS R3, [R0+0x4] ;
+        /*0030*/              @!P1 BRA `(.L_x_1) ;
+\t\tFunction : _ZN12_GLOBAL__N_117probe_hist_kernelILb1EEEvPKixiPi
+        /*0000*/                   LDG.E R2, desc[UR4][R4.64] ;
+        /*0010*/                   BRA 0x0 ;
+"""
+
+
+def test_loop_sass_reads_each_loop(tmp_path, monkeypatch):
+    """chip_smoke.loop_sass: the loads and IADD3s from each backward
+    branch's target to the branch, in both of cuobjdump's branch forms,
+    for the loop kernel's instances only."""
+    (tmp_path / "sass.txt").write_text(_SASS)
+    fake = tmp_path / "cuobjdump"
+    fake.write_text(f"#!/bin/sh\ncat {tmp_path / 'sass.txt'}\n")
+    fake.chmod(0o755)
+    monkeypatch.setattr(_kernels, "_nvcc", lambda: str(tmp_path / "nvcc"))
+    assert chip_smoke.loop_sass("lib.so") == {"global": [(2, 0, 1)],
+                                              "shared": [(0, 2, 0)]}
+
+
 # ---- (f) the pack kernel's byte-to-bit step, replayed in numpy ------------
 
 def _kernel_constants():
@@ -494,6 +748,8 @@ def test_other_devices_and_bad_arguments_raise():
         ops.probe_bits(torch.zeros(24, dtype=torch.bool), "pack", 16)
     with pytest.raises(ValueError, match="mode"):
         ops.probe_bits(x, "popc")
+    with pytest.raises(ValueError, match="CUDA table"):
+        ops.loop_threads(torch.zeros((8, 128), dtype=torch.int32), "global")
 
 
 def test_cpu_tensors_never_launch():
