@@ -87,7 +87,14 @@ Phases, one line each; any failure raises and the script exits non-zero:
     histogram at 4096 bins and on 2^21 values; the carry at its three
     shapes; and, with an untracked copy of the parent's csrc/probes.cu at
     PARENT_PROBES, the parent's histogram, pack, walk and carry in turns
-    with this tree's.
+    with this tree's;
+17. the -M host-memory bound (``fastk_tpu_torch/probes/rss.py``, the port's
+    ``benchmarks/bench_rss.py``): the CLI out of core at -k40 -t1 -M1 and
+    count_files_mesh in a world of one at the -M1 plan (-t1 -p), each a
+    fresh process on 80 and 240 MB of random bases; each run's peak RSS,
+    its peak above the runtime floor, its device peak, the pinned-host
+    cache's peak, run_hist's launches (the mesh's) and its wall, and the
+    JAX script's flatness verdict, which must be PASS for both.
 
 Run with arguments, the script is a rank of a phase-15c world
 (``fastk_tpu_torch/parallel/launch.py``).
@@ -110,6 +117,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from contextlib import redirect_stderr, redirect_stdout
 
 import numpy as np
@@ -2270,6 +2278,91 @@ def probes_phase(words_np: np.ndarray) -> list:
     return entries
 
 
+RSS_SIZES = (80, 240)  # MB of bases, benchmarks/bench_rss.py's defaults
+
+
+def host_memory_phase(tmp: str) -> int:
+    """Phase 17: the -M host-memory bound on the card
+    (``fastk_tpu_torch/probes/rss.py``, the port's bench_rss.py).
+
+    a. the CLI out of core, -k40 -t1 -v -M1, and
+    b. count_files_mesh in a world of one at the -M1 plan (-t1 -p),
+    each in a fresh process on random bases at RSS_SIZES, a and b side by
+    side on one input a size (their walls share the host), with the outputs
+    and spills of each in a temp dir deleted after the run.
+    Prints each run's peak RSS, its peak above the runtime floor (set
+    beside -M1's 1000 MB, not gated), the device peak, the pinned-host
+    cache's peak, run_hist's launches and the wall; then the JAX script's
+    flatness line for a and b. Fails on a FAIL verdict, on a run that
+    peaked no higher than the floor, when a ran in core, or when b launched
+    no run_hist kernel (rss.run_one_mesh raises).
+    Returns b's run_hist launches."""
+    import shutil
+
+    from fastk_tpu_torch.probes import rss
+
+    t17 = time.perf_counter()
+    d17 = os.path.join(tmp, "rss17")
+    os.mkdir(d17)
+    df = subprocess.run(["df", "-h", d17], capture_output=True, text=True,
+                        timeout=60).stdout.strip()
+    print(f"phase 17 disk of its temp dir:\n{df}", flush=True)
+    floor = rss.runtime_rss("cuda")
+    runs = {"17a": [], "17b": []}
+    what = {"17a": "the CLI out of core at -M1",
+            "17b": "count_files_mesh, world one, at the -M1 plan"}
+    fasta = os.path.join(d17, "in.fasta")
+
+    def run(label: str) -> dict:
+        work = tempfile.mkdtemp(prefix=label, dir=d17)
+        try:
+            return (rss.run_one if label == "17a" else rss.run_one_mesh)(
+                fasta, work, K, "cuda")
+        finally:
+            shutil.rmtree(work)
+
+    for mb in RSS_SIZES:
+        rss.make_fasta(fasta, mb << 20)
+        # a and b side by side, each its own process (its own peaks)
+        with ThreadPoolExecutor(2) as pool:
+            both = list(pool.map(run, runs))
+        for label, res in zip(runs, both):
+            res["label"] = f"{mb}MB"
+            res["above_runtime_mb"] = res["peak_rss_mb"] - floor
+            runs[label].append(res)
+            print(f"phase {label} {what[label]} on {mb} MB "
+                  f"({res['input_bases']} bytes): peak RSS "
+                  f"{res['peak_rss_mb']} MB, {res['above_runtime_mb']} MB "
+                  f"above the runtime's {floor} MB (-M1: 1000 MB); device "
+                  f"peak {res['device_peak_bytes'] / 1e9:.3f} GB; pinned "
+                  f"host cache peak {res['pinned_peak_bytes'] / 1e6:.1f} MB "
+                  f"(at the end {res['pinned_current_bytes'] / 1e6:.1f} "
+                  "MB); run_hist launches "
+                  f"{res['run_hist_launches']}"
+                  + ("" if label == "17b" else
+                     f"; out of core {res['out_of_core']}")
+                  + f"; {res['wall_s']:.2f} s", flush=True)
+        os.remove(fasta)
+    verdicts = {}
+    for label, res in runs.items():
+        v = rss.flatness(res, list(RSS_SIZES))
+        v.update(phase=label, runtime_rss_mb=floor, device="cuda")
+        verdicts[label] = v
+        print(json.dumps(v), flush=True)
+    launches = sum(r["run_hist_launches"] for r in runs["17b"])
+    print(f"phase 17 {time.perf_counter() - t17:.1f} s [{_smi()}]",
+          flush=True)
+    failed = [k for k, v in verdicts.items() if v["verdict"] != "PASS"]
+    if failed:
+        raise AssertionError(f"phase 17: flatness FAIL in {failed}")
+    if min(r["above_runtime_mb"] for rs in runs.values() for r in rs) <= 0:
+        raise AssertionError("phase 17: a run peaked no higher than the "
+                             "runtime floor: its ru_maxrss was not its own")
+    if not all(r["out_of_core"] for r in runs["17a"]):
+        raise AssertionError("phase 17a: the -M1 plan kept the CLI in core")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -3010,7 +3103,11 @@ def main() -> int:
         torch.cuda.empty_cache()
         probe_entries = probes_phase(sw_np)
 
-    print(f"phases 1-16 in {time.perf_counter() - t_start:.1f} s [{_smi()}]",
+        # phase 17: the -M host-memory bound, out of core and in the mesh
+        torch.cuda.empty_cache()
+        launches17 = host_memory_phase(tmp)
+
+    print(f"phases 1-17 in {time.perf_counter() - t_start:.1f} s [{_smi()}]",
           flush=True)
 
     print(json.dumps({"kernels": [{
@@ -3018,12 +3115,14 @@ def main() -> int:
         "source": "fastk_tpu_torch/csrc/run_hist.cu",
         "replaces": "fastk_tpu/ops/histker.py:72",
         "launches": (launches + launches7 + launches12 + launches14
-                     + launches15a + launches15b + launches15c),
+                     + launches15a + launches15b + launches15c
+                     + launches17),
         "launches_per_job": launches,
         "launches_phase14a": launches14,
         "launches_phase15a": launches15a,
         "launches_phase15b": launches15b,
         "launches_phase15c": launches15c,
+        "launches_phase17b": launches17,
         "max_abs_err": max_err,
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None,

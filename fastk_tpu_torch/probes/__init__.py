@@ -1,12 +1,16 @@
-"""The Mosaic feasibility probes of ``benchmarks/_pallas_feas*.py``, run
-through the port's kernels of ``ops/probes.py``.
+"""The port's counterparts of the ``benchmarks/`` scripts that check a
+property: the Mosaic feasibility probes of ``benchmarks/_pallas_feas*.py``,
+run through the port's kernels of ``ops/probes.py``, and ``rss``, the -M
+host-memory check of ``benchmarks/bench_rss.py``
+(``python -m fastk_tpu_torch.probes.rss``; see its docstring).
 
-Each module ``feas``, ``feas2``, ``feas3`` and ``feas4`` is the counterpart
-of one probe script: the same probe names, the same inputs from the same
-numpy seeds, the same ``probe(name, fn)`` lines, and each probe's own check
-against numpy. ``LAUNCHES`` in each module lists the port's function for
-each ``pallas_call`` of its script, in the order the script launches them,
-each taking that call's inputs and returning its output's shape.
+Each probe module ``feas``, ``feas2``, ``feas3`` and ``feas4`` is the
+counterpart of one probe script: the same probe names, the same inputs from
+the same numpy seeds, the same ``probe(name, fn)`` lines, and each probe's
+own check against numpy. ``LAUNCHES`` in each module lists the port's
+function for each ``pallas_call`` of its script, in the order the script
+launches them, each taking that call's inputs and returning its output's
+shape.
 
     python -m fastk_tpu_torch.probes        # on the card; raises without one
 

@@ -11,7 +11,9 @@ bool), the carry's tiles at every block length from 1 to 2^20, the walk
 with every set bit in one block's words, store mode at 2^26 values and on
 views with a tail, the loop's grid at trip counts around its thread count
 and at 2^31 - 1, on narrow and wide tables, and its SASS (a load a step),
-and the whole of ``python -m fastk_tpu_torch.probes``.
+and the whole of ``python -m fastk_tpu_torch.probes``; the host-memory
+check (probes/rss.py) at 16 MB through the CLI out of core and through
+count_files_mesh.
 
 Imports no JAX, so that it runs on a machine with a card and without JAX:
 
@@ -795,3 +797,25 @@ def test_probe_loop_sass_loads_a_step(cuda_device):
     for m, col in (("index", 2), ("static", 0), ("global", 0),
                    ("shared", 1)):
         assert max(loop[col] for loop in sass[m]) >= unroll, (m, sass[m])
+
+
+@pytest.mark.parametrize("mesh", [False, True], ids=["run_one",
+                                                    "run_one_mesh"])
+def test_rss_runs_on_card(cuda_device, tmp_path, mesh):
+    """probes/rss.py's runs at 16 MB of random bases on the card, each a
+    fresh process: a peak RSS, the device line (device peak, pinned-host
+    cache), the CLI out of core, the mesh's owner counts on run_hist."""
+    from fastk_tpu_torch.probes import rss
+
+    fasta = str(tmp_path / "in.fasta")
+    rss.make_fasta(fasta, 16 << 20)
+    work = tmp_path / "work"
+    work.mkdir()
+    res = (rss.run_one_mesh if mesh else rss.run_one)(fasta, str(work), 40)
+    assert res["peak_rss_mb"] > 0 and res["input_bases"] > 16 << 20
+    assert res["device_peak_bytes"] > 0
+    assert res["pinned_peak_bytes"] >= res["pinned_current_bytes"] >= 0
+    if mesh:
+        assert res["run_hist_launches"] > 0
+    else:
+        assert res["out_of_core"] and res["run_hist_launches"] == 0
