@@ -94,7 +94,16 @@ Phases, one line each; any failure raises and the script exits non-zero:
     fresh process on 80 and 240 MB of random bases; each run's peak RSS,
     its peak above the runtime floor, its device peak, the pinned-host
     cache's peak, run_hist's launches (the mesh's) and its wall, and the
-    JAX script's flatness verdict, which must be PASS for both.
+    JAX script's flatness verdict, which must be PASS for both;
+18. the port's headline bench (``fastk_tpu_torch/bench.py``, the
+    counterpart of bench.py): its headline step on the bench's 2^24 batch
+    equal to the step with the plain binning, one run_hist launch a step,
+    the fused step equal to the CPU port's, sort_counted on the card equal
+    to numpy's order; ``python -m fastk_tpu_torch.bench`` at 2^24 and 2^26
+    in subprocesses, its lines printed and checked (the headline last, at
+    least 3 trials, the step's host syncs, pinning and waits on the line
+    before it); ``probes.profiles`` and ``probes.stages`` (2^26) with their
+    lines.
 
 Run with arguments, the script is a rank of a phase-15c world
 (``fastk_tpu_torch/parallel/launch.py``).
@@ -2363,6 +2372,139 @@ def host_memory_phase(tmp: str) -> int:
     return launches
 
 
+BENCH_SIZES = (1 << 24, 1 << 26)  # bench.py's default batch; phase 4's
+BENCH_TIMEOUT_S = 600
+
+
+def bench_phase() -> int:
+    """Phase 18: the port's headline bench (``fastk_tpu_torch/bench.py``,
+    the counterpart of bench.py) and its probes on the card.
+
+    a. in process, on the bench's batch at 2^24: three headline steps, each
+       one run_hist launch, the histogram equal to the same step's with
+       run_hist_ref (exact) and nvalid to the reads' windows; the fused
+       step's nvalid, nseg and pos_counts equal to the CPU port's on the
+       same batch; sort_counted's device sort of 2^21 rows of three words
+       equal to numpy's order;
+    b. ``python -m fastk_tpu_torch.bench`` in a subprocess at each of
+       BENCH_SIZES (FASTK_BENCH_SIZE), its lines printed: the fused line,
+       the step's syncs and waits, the headline last, which must parse with
+       value > 0, at least 3 trials and this card's name; one run_hist
+       launch a headline step;
+    c. ``probes.profiles`` (2^24) and ``probes.stages`` (2^26), in process.
+    Returns the run_hist launches of a, b and c."""
+    import torch
+
+    from fastk_tpu_torch import bench
+    from fastk_tpu_torch.ops.histker import (
+        hist_device_part,
+        run_hist,
+        run_hist_ref,
+    )
+    from fastk_tpu_torch.ops.pack import upload_packed
+    from fastk_tpu_torch.ops.tables import sort_counted
+    from fastk_tpu_torch.probes import profiles, stages
+
+    t18 = time.perf_counter()
+    dev, cpu = torch.device("cuda"), torch.device("cpu")
+    kind = torch.cuda.get_device_name(0)
+
+    # 18a
+    size = BENCH_SIZES[0]
+    pw, exc, total, nreads = bench.bench_input(
+        size, max(1 << 16, size // 33), bench.READ_LEN)
+    nvalid_expect = nreads * (bench.READ_LEN - K + 1)
+    run_hist.launches = 0
+    for i in range(3):
+        before = run_hist.launches
+        hist, nvalid = bench.headline_step(pw, exc, total, size, dev)
+        if run_hist.launches != before + 1:
+            raise AssertionError(f"phase 18a: step {i} made "
+                                 f"{run_hist.launches - before} launches")
+    launches_a = run_hist.launches
+    sw, valid_end = hist_device_part(upload_packed(pw, exc, total, dev), K,
+                                     size)
+    want, _ = run_hist_ref(sw, valid_end)
+    if not torch.equal(hist, want) or not (
+            nvalid == valid_end == nvalid_expect):
+        raise AssertionError(f"phase 18a: the headline step's histogram "
+                             f"differs from run_hist_ref's, or nvalid "
+                             f"{nvalid} != {valid_end} != {nvalid_expect}")
+    del sw, want
+    got = bench.fused_step(pw, exc, total, size, dev)
+    t0 = time.perf_counter()
+    ref = bench.fused_step(pw, exc, total, size, cpu)
+    cpu_s = time.perf_counter() - t0
+    if (not int(got[0]) == int(ref[0]) == nvalid_expect
+            or int(got[1]) != int(ref[1])
+            or not torch.equal(got[2].cpu(), ref[2])):
+        raise AssertionError("phase 18a: the fused step on the card differs "
+                             "from the CPU port's")
+    rng = np.random.default_rng(18)
+    w = rng.integers(0, 1 << 32, (1 << 21, 3), dtype=np.int64
+                     ).astype(np.uint32)
+    c = rng.integers(1, 1 << 15, 1 << 21).astype(np.uint16)
+    sw_, sc_ = sort_counted(w, c, device="cuda")
+    order = np.argsort(np.ascontiguousarray(w.astype(">u4")).view("S12")
+                       .ravel(), kind="stable")
+    if not (np.array_equal(sw_, w[order]) and np.array_equal(sc_, c[order])):
+        raise AssertionError("phase 18a: sort_counted on the card differs "
+                             "from numpy's order")
+    print(f"phase 18a the bench's batch at 2^{size.bit_length() - 1} "
+          f"({nreads} reads of "
+          f"{bench.READ_LEN}): 3 headline steps, {launches_a} run_hist "
+          f"launches, the histogram equal to run_hist_ref's, nvalid "
+          f"{nvalid}; the fused step equal to the CPU port's (nvalid, "
+          f"nseg {int(got[1])}, pos_counts; the CPU's step {cpu_s:.2f} s); "
+          f"sort_counted of 2^21 rows on the card equal to numpy's order",
+          flush=True)
+    del got, ref, hist
+    torch.cuda.empty_cache()
+
+    # 18b
+    launches_b = 0
+    here = os.path.dirname(os.path.abspath(__file__))
+    for size in BENCH_SIZES:
+        env = dict(os.environ, FASTK_BENCH_SIZE=str(size))
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "fastk_tpu_torch.bench"],
+                           cwd=here, env=env, capture_output=True, text=True,
+                           timeout=BENCH_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        for ln in r.stdout.splitlines():
+            print(f"phase 18b 2^{size.bit_length() - 1}: {ln}", flush=True)
+        if r.returncode != 0:
+            raise AssertionError(f"phase 18b: the bench at {size} exited "
+                                 f"{r.returncode}:\n{r.stderr[-3000:]}")
+        lines = [json.loads(ln) for ln in r.stdout.splitlines()]
+        fused, diag, head = lines
+        if not (head["metric"] == bench.METRIC and head["value"] > 0
+                and head["band"]["n_trials"] >= 3
+                and head["batch_size"] == size
+                and fused["metric"] == bench.FUSED_METRIC
+                and fused["band"]["n_trials"] >= 3
+                and all(ln["device"]["name"] == kind for ln in lines)):
+            raise AssertionError(f"phase 18b: the bench's lines at {size} "
+                                 "are not the contract's")
+        if diag["run_hist_launches"] != diag["steps"] or (
+                diag["host_syncs"] is None):
+            raise AssertionError(f"phase 18b: {diag['run_hist_launches']} "
+                                 f"launches in {diag['steps']} steps")
+        launches_b += diag["run_hist_launches"]
+        print(f"phase 18b 2^{size.bit_length() - 1}: {wall:.1f} s",
+              flush=True)
+
+    # 18c
+    run_hist.launches = 0
+    profiles.main()
+    stages.main()
+    launches_c = run_hist.launches
+    torch.cuda.empty_cache()
+    print(f"phase 18c run_hist launches {launches_c}; phase 18 "
+          f"{time.perf_counter() - t18:.1f} s [{_smi()}]", flush=True)
+    return launches_a + launches_b + launches_c
+
+
 def main() -> int:
     import torch
 
@@ -3107,7 +3249,11 @@ def main() -> int:
         torch.cuda.empty_cache()
         launches17 = host_memory_phase(tmp)
 
-    print(f"phases 1-17 in {time.perf_counter() - t_start:.1f} s [{_smi()}]",
+        # phase 18: the port's headline bench and its probes
+        torch.cuda.empty_cache()
+        launches18 = bench_phase()
+
+    print(f"phases 1-18 in {time.perf_counter() - t_start:.1f} s [{_smi()}]",
           flush=True)
 
     print(json.dumps({"kernels": [{
@@ -3116,13 +3262,14 @@ def main() -> int:
         "replaces": "fastk_tpu/ops/histker.py:72",
         "launches": (launches + launches7 + launches12 + launches14
                      + launches15a + launches15b + launches15c
-                     + launches17),
+                     + launches17 + launches18),
         "launches_per_job": launches,
         "launches_phase14a": launches14,
         "launches_phase15a": launches15a,
         "launches_phase15b": launches15b,
         "launches_phase15c": launches15c,
         "launches_phase17b": launches17,
+        "launches_phase18": launches18,
         "max_abs_err": max_err,
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None,

@@ -1,9 +1,8 @@
 """Sorted-table operations on the device: the operands of a merge of counted
-key rows, and the union-merge of counted key sets.
+key rows, the union-merge of counted key sets, and the sort of counted rows.
 
 Port of ``fastk_tpu/ops/tables.py``. Keys are host (n, W) uint32 word rows
 (ops/kmers.py packing); on the device they become W int64 word tensors.
-``sort_counted`` is not ported: no caller of the port needs it.
 """
 
 from __future__ import annotations
@@ -14,7 +13,7 @@ import numpy as np
 import torch
 
 from fastk_tpu_torch.device import resolve_device
-from fastk_tpu_torch.ops.count import ONES, merge_unique_blocks
+from fastk_tpu_torch.ops.count import ONES, merge_unique_blocks, sort_keys
 
 DEVICE_MIN_ROWS = 1 << 20  # below this, numpy beats the transfers
 
@@ -89,3 +88,28 @@ def merge_counted(words_list: Sequence[np.ndarray],
     words = np.stack([w[:n].cpu().numpy().astype(np.uint32)
                       for w in merged["seg_words"]], axis=1)
     return words, merged["seg_counts"][:n].cpu().numpy().astype(np.int64)
+
+
+def sort_counted(words: np.ndarray, counts: np.ndarray, device="cuda"
+                 ) -> Tuple[np.ndarray, np.ndarray]:
+    """Sort (words, counts) rows by key, without dedup (Symmex's core op).
+
+    From DEVICE_MIN_ROWS rows on, sort_keys on `device` (torch.sort over
+    the keys packed two words to an int64, as merge_counted's merge packs
+    them) gives the order, and the host gathers the rows by it; below it a
+    stable numpy argsort of the big-endian key bytes, copied from the JAX
+    package. On the device the order of equal keys is unspecified, as in
+    JAX: callers' keys are distinct (a canonical table never holds both x
+    and rc(x))."""
+    dev = resolve_device(device)
+    n = len(counts)
+    W = words.shape[1]
+    if n < DEVICE_MIN_ROWS:
+        be = np.ascontiguousarray(words.astype(">u4")).view(f"S{4 * W}").ravel()
+        order = np.argsort(be, kind="stable")
+        return words[order], counts[order]
+    wt = tuple(_upload_u32(words[:, j], dev) for j in range(W))
+    idx = torch.arange(n, dtype=torch.int64, device=dev)
+    _, (order,) = sort_keys(wt, (idx,))
+    order = order.cpu().numpy()
+    return words[order], counts[order]

@@ -1,8 +1,10 @@
-"""The port's counterparts of the ``benchmarks/`` scripts that check a
-property: the Mosaic feasibility probes of ``benchmarks/_pallas_feas*.py``,
-run through the port's kernels of ``ops/probes.py``, and ``rss``, the -M
-host-memory check of ``benchmarks/bench_rss.py``
-(``python -m fastk_tpu_torch.probes.rss``; see its docstring).
+"""The port's counterparts of the ``benchmarks/`` scripts: the Mosaic
+feasibility probes of ``benchmarks/_pallas_feas*.py``, run through the
+port's kernels of ``ops/probes.py``; ``rss``, the -M host-memory check of
+``benchmarks/bench_rss.py`` (``python -m fastk_tpu_torch.probes.rss``);
+``profiles``, the fused -t -p job of ``benchmarks/bench_profiles.py``; and
+``stages``, the count_batch stage times of ``benchmarks/prof_stages.py``
+(each ``python -m fastk_tpu_torch.probes.<name>``; see their docstrings).
 
 Each probe module ``feas``, ``feas2``, ``feas3`` and ``feas4`` is the
 counterpart of one probe script: the same probe names, the same inputs from

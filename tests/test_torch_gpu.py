@@ -13,7 +13,7 @@ views with a tail, the loop's grid at trip counts around its thread count
 and at 2^31 - 1, on narrow and wide tables, and its SASS (a load a step),
 and the whole of ``python -m fastk_tpu_torch.probes``; the host-memory
 check (probes/rss.py) at 16 MB through the CLI out of core and through
-count_files_mesh.
+count_files_mesh; the bench's headline step against its plain binning.
 
 Imports no JAX, so that it runs on a machine with a card and without JAX:
 
@@ -819,3 +819,23 @@ def test_rss_runs_on_card(cuda_device, tmp_path, mesh):
         assert res["run_hist_launches"] > 0
     else:
         assert res["out_of_core"] and res["run_hist_launches"] == 0
+
+
+def test_bench_headline_step_matches_plain(cuda_device):
+    """The bench's headline step on the card (fastk_tpu_torch/bench.py)
+    launches the run-length kernel once, and its histogram equals the same
+    step's with the plain binning, exactly."""
+    from fastk_tpu_torch import bench
+    from fastk_tpu_torch.ops.pack import upload_packed
+
+    size = 1 << 20
+    pw, exc, total, nreads = bench.bench_input(size, 1 << 16, bench.READ_LEN)
+    before = histker.run_hist.launches
+    hist, nvalid = bench.headline_step(pw, exc, total, size, cuda_device)
+    assert histker.run_hist.launches == before + 1
+    codes = upload_packed(pw, exc, total, cuda_device)
+    sw, valid_end = histker.hist_device_part(codes, bench.K, size)
+    want, _ = histker.run_hist_ref(sw, valid_end)
+    torch.cuda.synchronize()
+    assert torch.equal(hist, want)
+    assert nvalid == valid_end == nreads * (bench.READ_LEN - bench.K + 1)
