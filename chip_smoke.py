@@ -103,7 +103,18 @@ Phases, one line each; any failure raises and the script exits non-zero:
     in subprocesses, its lines printed and checked (the headline last, at
     least 3 trials, the step's host syncs, pinning and waits on the line
     before it); ``probes.profiles`` and ``probes.stages`` (2^26) with their
-    lines.
+    lines;
+19. the ports of the rest of ``benchmarks/`` (``fastk_tpu_torch/probes/``
+    sizes, tail, sorts, h2d and decomp): each module's cases at 2^16 on the
+    card equal to the CPU's; then each module's lines at full size: the
+    sort and binning at batch sizes 2^23-2^27, the post-sort primitives
+    flat and in rows (each row form equal to its flat form), the sort
+    layouts at 2^26 (the row and stable sorts' words equal to sort_keys',
+    the hash grouping's runs equal to sort_keys' runs, hash_hist equal to
+    hist_batch, the pair histogram equal to torch.bincount), the H2D rates
+    and overlaps, and the headline step's A/B (JAX's sort-and-searchsorted
+    binning step equal to the run-length kernel's in every round) at 2^24
+    and 2^26; run_hist launched in sizes, sorts and decomp.
 
 Run with arguments, the script is a rank of a phase-15c world
 (``fastk_tpu_torch/parallel/launch.py``).
@@ -2505,6 +2516,86 @@ def bench_phase() -> int:
     return launches_a + launches_b + launches_c
 
 
+PHASE19_CHECK = 1 << 16  # where each case on the card meets the CPU
+SIZES19 = tuple(range(23, 28))  # probes.sizes' batch sizes, log2
+
+
+def probe_modules_phase() -> int:
+    """Phase 19: the ports of the rest of benchmarks/ (``probes.sizes``,
+    ``tail``, ``sorts``, ``h2d`` and ``decomp``) on the card.
+
+    a. each module's cases at 2^16 on the card, each output equal to the
+       same case's on the CPU (probes/common.py same);
+    b. each module's main at full size in process, its lines printed:
+       sizes at 2^23-2^27; tail on the bench's batch at 2^26 and the
+       primitives at 2^26; sorts at 2^26; h2d at 2^26, its headline steps
+       on the bench's batch at 2^26; decomp at 2^24 and 2^26. It raises on
+       a row form that differs from its flat form (tail), a row or stable
+       sort whose words differ from sort_keys' or a hash grouping whose
+       runs are not sort_keys' runs, a pair histogram that differs from
+       torch.bincount, a sweep case that failed, hash_hist against
+       hist_batch (sorts), the old step against the walk step in any round
+       (decomp), and no run_hist launch in sizes, sorts or decomp.
+    Returns run_hist's launches in b."""
+    import torch
+
+    from fastk_tpu_torch.ops.histker import run_hist
+    from fastk_tpu_torch.probes import common, decomp, h2d, sizes, sorts, tail
+
+    t19 = time.perf_counter()
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    mods = (sizes, tail, sorts, h2d, decomp)
+    for mod in mods:
+        t0 = time.perf_counter()
+        card = mod.cases(cuda, PHASE19_CHECK)
+        host = dict(mod.cases(cpu, PHASE19_CHECK))
+        bad = [n for n, fn in card if not common.same(fn(), host[n]())]
+        if bad or len(card) != len(host):
+            raise AssertionError(f"phase 19a: {mod.__name__} cases differ on "
+                                 f"the card from the CPU: {bad}")
+        print(f"phase 19a {mod.__name__}: {len(card)} cases at 2^16 on the "
+              f"card equal to the CPU's ({time.perf_counter() - t0:.1f} s)",
+              flush=True)
+        del card, host
+        torch.cuda.empty_cache()
+
+    run_hist.launches = 0
+    launches = {}
+
+    def run(key, fn):
+        before = run_hist.launches
+        t0 = time.perf_counter()
+        res = fn()
+        launches[key] = run_hist.launches - before
+        torch.cuda.empty_cache()
+        print(f"phase 19b {key}: {time.perf_counter() - t0:.1f} s, "
+              f"{launches[key]} run_hist launches", flush=True)
+        return res
+
+    run("sizes", lambda: sizes.main(sizes=SIZES19))
+    res = run("tail", tail.main)
+    if res["mismatches"]:
+        raise AssertionError(f"phase 19b: tail's row forms differ from the "
+                             f"flat forms: {res['mismatches']}")
+    res = run("sorts", sorts.main)
+    if res["failed"] or not res["mxu_correct"] or res["mismatches"]:
+        raise AssertionError(f"phase 19b: sorts failed {res['failed']}, "
+                             f"mxu hist correct {res['mxu_correct']}, "
+                             f"layouts unlike sort_keys' {res['mismatches']}")
+    run("h2d", h2d.main)
+    for size in (1 << 24, 1 << 26):
+        run(f"decomp 2^{size.bit_length() - 1}",
+            lambda size=size: decomp.main(size=size))
+    missing = [k for k in ("sizes", "sorts", "decomp 2^24", "decomp 2^26")
+               if not launches[k]]
+    if missing:
+        raise AssertionError(f"phase 19b: no run_hist launch in {missing}")
+    total = sum(launches.values())
+    print(f"phase 19 run_hist launches {total} {launches}; phase 19 "
+          f"{time.perf_counter() - t19:.1f} s [{_smi()}]", flush=True)
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -3253,7 +3344,11 @@ def main() -> int:
         torch.cuda.empty_cache()
         launches18 = bench_phase()
 
-    print(f"phases 1-18 in {time.perf_counter() - t_start:.1f} s [{_smi()}]",
+        # phase 19: the ports of the rest of benchmarks/
+        torch.cuda.empty_cache()
+        launches19 = probe_modules_phase()
+
+    print(f"phases 1-19 in {time.perf_counter() - t_start:.1f} s [{_smi()}]",
           flush=True)
 
     print(json.dumps({"kernels": [{
@@ -3262,7 +3357,7 @@ def main() -> int:
         "replaces": "fastk_tpu/ops/histker.py:72",
         "launches": (launches + launches7 + launches12 + launches14
                      + launches15a + launches15b + launches15c
-                     + launches17 + launches18),
+                     + launches17 + launches18 + launches19),
         "launches_per_job": launches,
         "launches_phase14a": launches14,
         "launches_phase15a": launches15a,
@@ -3270,6 +3365,7 @@ def main() -> int:
         "launches_phase15c": launches15c,
         "launches_phase17b": launches17,
         "launches_phase18": launches18,
+        "launches_phase19": launches19,
         "max_abs_err": max_err,
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None,

@@ -400,6 +400,12 @@ def profile_join(table_words, table_counts, codes: torch.Tensor, k: int,
                         fold_invalid(words, invalid))
 
 
+def profile_join_keys(table_words, table_counts, q_words):
+    """Join query key words, already invalid-folded, against a sorted
+    table: clipped int16 counts in query order (see _join_counts)."""
+    return _join_counts(table_words, table_counts, q_words)
+
+
 def profile_join_inst(table_words, table_counts, s_words, s_pos):
     """Join a batch's retained sorted instance stream (unique_batch_inst's
     s_words and s_pos) against a sorted table: clipped int16 counts in

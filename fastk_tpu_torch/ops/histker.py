@@ -38,12 +38,7 @@ def start_words(s_words, valid_end: int) -> torch.Tensor:
     """Sorted key words -> packed run starts, cleared at and after valid_end
     (the all-ones invalid tail is not a run to bin), padded with cleared
     bits to a whole word."""
-    starts = run_starts(s_words)
-    starts[valid_end:] = False
-    pad = -starts.numel() % 32
-    if pad:
-        starts = torch.cat([starts, starts.new_zeros(pad)])
-    return pack_starts(starts)
+    return pack_valid_starts(run_starts(s_words), valid_end)
 
 
 def hist_device_part(codes: torch.Tensor, k: int, size: int):
@@ -57,6 +52,17 @@ def hist_device_part(codes: torch.Tensor, k: int, size: int):
     del words, invalid
     valid_end = size - int(ninv)
     return start_words(s_words, valid_end), valid_end
+
+
+def pack_valid_starts(starts: torch.Tensor, valid_end: int) -> torch.Tensor:
+    """bool run starts -> packed start words, the starts at and after
+    valid_end cleared (in place) and the tail padded with cleared bits to a
+    whole word."""
+    starts[valid_end:] = False
+    pad = -starts.numel() % 32
+    if pad:
+        starts = torch.cat([starts, starts.new_zeros(pad)])
+    return pack_starts(starts)
 
 
 def _check(start_words: torch.Tensor, valid_end: int) -> None:

@@ -86,18 +86,22 @@ def unpack_words(packed_words: torch.Tensor, exceptions: torch.Tensor,
     return unpack_stream(packed_words.view(torch.uint8), exceptions, size)
 
 
+def upload_int32(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host 32-bit array as int32 on `device`. On CUDA it is copied into
+    pinned memory and uploaded without blocking the host, so host work that
+    follows overlaps device work queued before it."""
+    t = torch.from_numpy(arr.view(np.int32))
+    if device.type == "cuda":
+        t = t.pin_memory().to(device, non_blocking=True)
+    return t
+
+
 def upload_packed(pw: np.ndarray, exc: np.ndarray, n: int,
                   device: torch.device) -> torch.Tensor:
-    """Host packed words and exceptions -> device codes [n].
-
-    On CUDA the upload goes through pinned memory without blocking the host,
-    so host work that follows overlaps device work queued before it."""
-    words = torch.from_numpy(pw.view(np.int32))
-    excs = torch.from_numpy(exc.view(np.int32))
-    if device.type == "cuda":
-        words = words.pin_memory().to(device, non_blocking=True)
-        excs = excs.pin_memory().to(device, non_blocking=True)
-    return unpack_words(words, excs, n)
+    """Host packed words and exceptions -> device codes [n], each uploaded
+    by upload_int32."""
+    return unpack_words(upload_int32(pw, device), upload_int32(exc, device),
+                        n)
 
 
 def device_codes(codes: np.ndarray, device: torch.device) -> torch.Tensor:

@@ -17,15 +17,14 @@ the port's counterpart of the script's stage of the same name:
   seg hist only (no compaction)     start_words + run_hist (the kernel)
   count_batch full (hist)           count_batch(codes, K, SIZE, False, True)
 
-On the card a stage is timed with CUDA events around 5 runs after a
-warm-up run, divided by 5; on the CPU (the tests) with the host clock.
+A stage's time is the mean of 5 runs after a warm-up run, each run timed
+by probes/common.py run_ms: CUDA events around it on the card, the host
+clock on the CPU (the tests).
 Prints one line a stage in the JAX script's format, the device's name
 after it. Runs on the card and raises without one.
 """
 
 from __future__ import annotations
-
-import time
 
 import numpy as np
 import torch
@@ -41,6 +40,7 @@ from fastk_tpu_torch.ops.count import (
 from fastk_tpu_torch.ops.histker import run_hist, start_words
 from fastk_tpu_torch.ops.kmers import canonical_kmers, pad_needed
 from fastk_tpu_torch.ops.pack import pack_stream, unpack_stream
+from fastk_tpu_torch.probes.common import run_ms
 
 K = 40
 SIZE = 1 << 26
@@ -89,22 +89,8 @@ def stages(dev, size: int) -> list:
 
 
 def stage_ms(fn, dev) -> float:
-    """ms of one fn() after a warm-up run: CUDA events around RUNS runs on
-    the card, the host clock on the CPU."""
-    fn()
-    if dev.type != "cuda":
-        t0 = time.perf_counter()
-        for _ in range(RUNS):
-            fn()
-        return (time.perf_counter() - t0) * 1e3 / RUNS
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(RUNS):
-        fn()
-    b.record()
-    b.synchronize()
-    return a.elapsed_time(b) / RUNS
+    """ms of one fn(): the mean of RUNS timed runs after a warm-up run."""
+    return sum(run_ms(fn, dev, RUNS)) / RUNS
 
 
 def main(device="cuda") -> list:

@@ -13,7 +13,9 @@ views with a tail, the loop's grid at trip counts around its thread count
 and at 2^31 - 1, on narrow and wide tables, and its SASS (a load a step),
 and the whole of ``python -m fastk_tpu_torch.probes``; the host-memory
 check (probes/rss.py) at 16 MB through the CLI out of core and through
-count_files_mesh; the bench's headline step against its plain binning.
+count_files_mesh; the bench's headline step against its plain binning; each
+port of the rest of benchmarks/ (probes.sizes, tail, sorts, h2d and
+decomp), every case at 2^16 on the card equal to the CPU port's.
 
 Imports no JAX, so that it runs on a machine with a card and without JAX:
 
@@ -839,3 +841,23 @@ def test_bench_headline_step_matches_plain(cuda_device):
     torch.cuda.synchronize()
     assert torch.equal(hist, want)
     assert nvalid == valid_end == nreads * (bench.READ_LEN - bench.K + 1)
+
+
+@pytest.mark.parametrize("module", ["sizes", "tail", "sorts", "h2d",
+                                    "decomp"])
+def test_probe_module_cases_match_cpu(cuda_device, module):
+    """Every case of the probe module at 2^16 on the card equals the same
+    case on the CPU (probes/common.py same); sizes, sorts and decomp launch
+    the run-length kernel."""
+    import importlib
+
+    from fastk_tpu_torch.probes import common
+
+    mod = importlib.import_module(f"fastk_tpu_torch.probes.{module}")
+    host = dict(mod.cases(torch.device("cpu"), 1 << 16))
+    before = histker.run_hist.launches
+    card = mod.cases(cuda_device, 1 << 16)
+    bad = [n for n, fn in card if not common.same(fn(), host[n]())]
+    assert [n for n, _ in card] == list(host) and not bad
+    if module in ("sizes", "sorts", "decomp"):
+        assert histker.run_hist.launches > before

@@ -16,6 +16,7 @@ import fastk_tpu_torch.pipeline.count as tpipe
 from fastk_tpu.formats import ktab as K
 from fastk_tpu.formats import prof as P
 from fastk_tpu.formats.hist import write_histogram
+from fastk_tpu.ops.kmers import canonical_kmers as jax_canonical
 from fastk_tpu_torch.convert import (
     codes_from_numpy,
     words_from_numpy,
@@ -160,6 +161,27 @@ def test_profile_joins_match_jax(k):
     got_i = tcount.profile_join_inst(*tt, ti["s_words"], ti["s_pos"])
     assert np.array_equal(_u16(got_i), want_i)
     assert np.array_equal(want_i, want)
+
+
+@pytest.mark.parametrize("k", KS)
+def test_profile_join_keys_matches_jax(k):
+    """profile_join_keys on folded query words in an arbitrary order (the
+    query stream's keys, shuffled): counts in query order, as JAX's."""
+    words, counts, q = _table_and_queries(k)
+    jt = (tuple(jnp.asarray(w) for w in words), jnp.asarray(counts))
+    tt = (words_from_numpy(words, "cpu"), torch.from_numpy(counts))
+    qw, qinv = jax_canonical(jnp.asarray(q), k, SIZE)
+    order = np.random.default_rng(k).permutation(SIZE)
+    folded = tuple(np.asarray(w)[order]
+                   for w in jcount.fold_invalid(qw, qinv))
+    want = np.asarray(jcount.profile_join_keys(
+        *jt, tuple(jnp.asarray(w) for w in folded)))
+    got = tcount.profile_join_keys(*tt, words_from_numpy(folded, "cpu"))
+    assert got.dtype == torch.int16
+    assert np.array_equal(_u16(got), want)
+    assert (want > 1).any() and (want == 0).any()
+    assert np.array_equal(want, np.asarray(jcount.profile_join(
+        *jt, jnp.asarray(q), k, SIZE))[order])
 
 
 @pytest.mark.parametrize("k", [12, 40])
