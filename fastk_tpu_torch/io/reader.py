@@ -12,10 +12,13 @@ case-sensitively, exactly like the reference's ADD macro (io.c:557-570).
 from __future__ import annotations
 
 import gzip
+import os
 from dataclasses import dataclass
 from typing import Iterator, List, Tuple
 
 import numpy as np
+
+from fastk_tpu_torch import trace
 
 SENTINEL = 4
 
@@ -179,13 +182,34 @@ INGEST_CHUNK = 32 << 20  # raw bytes per streamed read() chunk
 def _stream_raw(path: str, chunk: int = INGEST_CHUNK) -> Iterator[bytes]:
     """Stream a (possibly gzip'd) file in bounded chunks — nothing is ever
     whole-file resident (the reference byte-range-partitions inputs for the
-    same reason, io.c:2280-2600)."""
+    same reason, io.c:2280-2600).
+
+    Traced: each read (file read plus inflate) is the span reader.raw; the
+    counters reader.text_bytes (bytes after inflate) and reader.file_bytes
+    (bytes read from disk, compressed for a .gz) add up what was read."""
     with _open(path) as f:
-        while True:
-            b = f.read(chunk)
-            if not b:
-                return
-            yield b
+        try:
+            while True:
+                with trace.span("reader.raw"):
+                    b = f.read(chunk)
+                if not b:
+                    return
+                trace.count("reader.text_bytes", len(b))
+                yield b
+        finally:
+            if trace.active():
+                trace.count("reader.file_bytes", _disk_bytes(f, path))
+
+
+def _disk_bytes(f, path: str) -> int:
+    """Bytes of `path` read from disk so far through `f`, an object of
+    _open: the plain file's position, the compressed file's under gzip, or
+    the whole file once a BGZF stream (read ahead by its pool) is open."""
+    raw = getattr(f, "fileobj", f)  # gzip.GzipFile reads its fileobj
+    try:
+        return raw.tell()
+    except (OSError, ValueError):
+        return os.path.getsize(path)
 
 
 def _record_chunks(path: str, fmt: str,
@@ -201,25 +225,28 @@ def _record_chunks(path: str, fmt: str,
     anchor)."""
     carry = b""
     for raw in _stream_raw(path, chunk):
-        buf = carry + raw if carry else raw
-        if fmt == "fasta":
-            cut = buf.rfind(b"\n>")
+        with trace.span("reader.snap"):
+            buf = carry + raw if carry else raw
+            if fmt == "fasta":
+                cut = buf.rfind(b"\n>")
+                if cut >= 0:
+                    cut += 1  # keep the newline with the emitted records
+            else:  # fastq
+                arr = np.frombuffer(buf, dtype=np.uint8)
+                nls = np.flatnonzero(arr == 0x0A)
+                cut = -1
+                if len(nls) >= 4:
+                    last4 = (len(nls) // 4) * 4 - 1  # the last 4k-th newline
+                    cut = int(nls[last4]) + 1
             if cut < 0:
                 carry = buf
                 continue
-            cut += 1  # keep the newline with the emitted records
-        else:  # fastq
-            arr = np.frombuffer(buf, dtype=np.uint8)
-            nls = np.flatnonzero(arr == 0x0A)
-            if len(nls) < 4:
-                carry = buf
-                continue
-            last4 = (len(nls) // 4) * 4 - 1  # index of last 4k-th newline
-            cut = int(nls[last4]) + 1
-        yield buf[:cut]
-        carry = buf[cut:]
-    if carry and carry.strip():
-        yield carry
+            out, carry = buf[:cut], buf[cut:]
+        yield out
+    with trace.span("reader.snap"):
+        last = carry if carry and carry.strip() else None
+    if last:
+        yield last
 
 
 def _ingest_threads() -> int:
@@ -239,12 +266,19 @@ def _pooled(chunks, parse_one):
     in flight, so host memory stays O(workers * chunk) regardless of file
     size. Native parsers release the GIL (ctypes), so workers run truly
     in parallel — the reference's ITHREADS input data-parallelism
-    (io.c:2280-2600) with the boundary snap done once at chunk seams."""
+    (io.c:2280-2600) with the boundary snap done once at chunk seams.
+
+    Traced: the main thread's time on the pool, the hand-off of each chunk
+    (which starts a worker the first times) and the wait until a parsed
+    piece is in hand, is the span reader.wait (the parse itself, with one
+    worker)."""
     nw = _ingest_threads()
     if nw <= 1:
         def gen_serial():
             for buf in chunks:
-                yield parse_one(buf)
+                with trace.span("reader.wait"):
+                    piece = parse_one(buf)
+                yield piece
 
         return gen_serial()
 
@@ -255,12 +289,17 @@ def _pooled(chunks, parse_one):
         with ThreadPoolExecutor(max_workers=nw) as pool:
             pending = deque()
             for buf in chunks:
-                pending.append(pool.submit(parse_one, buf))
+                with trace.span("reader.wait"):
+                    pending.append(pool.submit(parse_one, buf))
                 del buf
                 while len(pending) > nw:
-                    yield pending.popleft().result()
+                    with trace.span("reader.wait"):
+                        piece = pending.popleft().result()
+                    yield piece
             while pending:
-                yield pending.popleft().result()
+                with trace.span("reader.wait"):
+                    piece = pending.popleft().result()
+                yield piece
 
     return gen()
 
@@ -288,11 +327,13 @@ def _scan_stream_native(path: str, fmt: str, hc: bool, bc: int):
         return None
 
     def parse_one(buf: bytes):
-        piece = native.scan_seq(buf, fastq=(fmt == "fastq"), hc=hc, bc=bc)
-        if piece is None:  # capacity edge: fall back for this buffer
-            piece_reads = list(_iter_buffer(buf, fmt))
-            b = pack_reads(piece_reads, hc=hc, bc=bc)
-            piece = (b.codes, b.boff, b.rlen)
+        with trace.span("reader.parse"):
+            piece = native.scan_seq(buf, fastq=(fmt == "fastq"), hc=hc,
+                                    bc=bc)
+            if piece is None:  # capacity edge: fall back for this buffer
+                piece_reads = list(_iter_buffer(buf, fmt))
+                b = pack_reads(piece_reads, hc=hc, bc=bc)
+                piece = (b.codes, b.boff, b.rlen)
         return piece
 
     return _pooled(_record_chunks(path, fmt), parse_one)
@@ -329,7 +370,8 @@ def _iter_buffer(buf: bytes, fmt: str) -> Iterator[bytes]:
 
 class _PieceAccum:
     """Accumulate (codes, boff, rlen) pieces into ~batch_bases ReadBatches,
-    splitting oversized pieces at read boundaries."""
+    splitting oversized pieces at read boundaries. Traced: the span
+    reader.batch."""
 
     def __init__(self, batch_bases: int):
         self.batch_bases = batch_bases
@@ -343,18 +385,21 @@ class _PieceAccum:
         lo = 0
         nreads = len(rlen)
         while lo < nreads:
-            want = self.batch_bases - self.bases
-            # largest hi with boff[hi] - boff[lo] <= want, at least lo+1
-            hi = int(np.searchsorted(boff, boff[lo] + want, side="right")) - 1
-            hi = max(hi, lo + 1)
-            if hi >= nreads and self.bases + int(
-                    boff[nreads] - boff[lo]) < self.batch_bases:
-                hi = nreads  # piece exhausted below the batch target
+            with trace.span("reader.batch"):
+                want = self.batch_bases - self.bases
+                # largest hi with boff[hi] - boff[lo] <= want, at least lo+1
+                hi = int(np.searchsorted(boff, boff[lo] + want,
+                                         side="right")) - 1
+                hi = max(hi, lo + 1)
+                if hi >= nreads and self.bases + int(
+                        boff[nreads] - boff[lo]) < self.batch_bases:
+                    hi = nreads  # piece exhausted below the batch target
+                    self._push(codes, boff, rlen, lo, hi)
+                    return
+                hi = min(hi, nreads)
                 self._push(codes, boff, rlen, lo, hi)
-                return
-            hi = min(hi, nreads)
-            self._push(codes, boff, rlen, lo, hi)
-            yield self.flush()
+                batch = self.flush()
+            yield batch
             lo = hi
 
     def _push(self, codes, boff, rlen, lo, hi):
@@ -390,8 +435,19 @@ def batched_reads(
     (long-read splitting with a k-1 halo is handled at the device chunking
     layer, not here). FASTA/FASTQ parse through the native scanner over
     bounded streamed chunks — host memory stays O(batch) regardless of file
-    size, gzip'd or not.
+    size, gzip'd or not. Traced: the counter reader.bases adds each
+    batch's bases.
     """
+    batches = _batched_reads(paths, batch_bases, hc, bc)
+    try:
+        for batch, ordinal in batches:
+            trace.count("reader.bases", batch.totlen)
+            yield batch, ordinal
+    finally:
+        batches.close()
+
+
+def _batched_reads(paths, batch_bases, hc, bc):
     ordinal = 0
     accum = _PieceAccum(batch_bases)
     cur: List[bytes] = []
@@ -410,7 +466,8 @@ def batched_reads(
                     ordinal += batch.nreads
             continue
         if accum.nreads:  # flush native pieces before python-path reads
-            batch = accum.flush()
+            with trace.span("reader.batch"):
+                batch = accum.flush()
             yield batch, ordinal
             ordinal += batch.nreads
         for r in iter_reads(path):
@@ -421,7 +478,8 @@ def batched_reads(
                 ordinal += len(cur)
                 cur, cur_bases = [], 0
     if accum.nreads:
-        batch = accum.flush()
+        with trace.span("reader.batch"):
+            batch = accum.flush()
         yield batch, ordinal
         ordinal += batch.nreads
     if cur:

@@ -11,16 +11,19 @@ sort key here is a packed int64 whatever the word width. Clipped counts
 (at most 32767) that go back to the host ride as int16 (ops/pack.py
 fetch_u16).
 
-unique_batch and merge_unique_blocks do not wait for the device: their
-counts come back as device tensors, so the pipeline's host work on the next
-batch overlaps the device work. count_batch waits once, for the number of
-valid positions that the run-length kernel needs.
+unique_batch and merge_unique_blocks return their counts as device tensors,
+so the pipeline's host work on the next batch overlaps the device work; but
+segment_reduce's store of one host scalar waits for the card (the wait
+segment_end), and merge_unique_blocks' torch.bincount reads its values'
+extremes on the host. count_batch also waits for the number of valid
+positions that the run-length kernel needs.
 """
 
 from __future__ import annotations
 
 import torch
 
+from fastk_tpu_torch import trace
 from fastk_tpu_torch.formats.hist import HIST_HIGH
 from fastk_tpu_torch.ops.kmers import canonical_kmers
 
@@ -105,7 +108,8 @@ def segment_reduce(s_words, weights=None):
     Returns dict(nseg int64 scalar tensor — number of segments, the trailing
     all-ones block being one of them; seg_counts int32 [size] — slot j holds
     segment j's sum, 0 beyond nseg; seg_words — tuple of int64 [size], slot j
-    holds segment j's key, all-ones beyond nseg)."""
+    holds segment j's key, all-ones beyond nseg). Traced: the wait
+    segment_end."""
     size = s_words[0].numel()
     dev = s_words[0].device
     starts = run_starts(s_words)
@@ -115,7 +119,8 @@ def segment_reduce(s_words, weights=None):
     # record index of each segment's start, size beyond nseg (one dump slot)
     seg_start = torch.full((size + 1,), size, dtype=torch.int64, device=dev)
     seg_start[torch.where(starts, slot, size)] = idx
-    seg_start[size] = size  # the dump slot doubles as the last end bound
+    with trace.wait("segment_end"):  # the scalar's copy waits for the card
+        seg_start[size] = size  # the dump slot doubles as the last end bound
     if weights is None:
         bounds = seg_start
     else:
@@ -170,9 +175,10 @@ def unique_batch(codes: torch.Tensor, k: int, size: int):
     Returns dict(seg_words tuple of int64 [size] — slot j = j-th unique key,
     all-ones beyond; seg_counts int32 [size]; nseg, nuniq and nvalid as int64
     scalar tensors — nseg includes a trailing invalid segment, nuniq does
-    not)."""
-    s_words, _, ninv = _sorted_keys(codes, k, size)
-    return _uniques(s_words, ninv, size)
+    not). Traced: the span dedup."""
+    with trace.span("dedup"):
+        s_words, _, ninv = _sorted_keys(codes, k, size)
+        return _uniques(s_words, ninv, size)
 
 
 def unique_batch_inst(codes: torch.Tensor, k: int, size: int):
@@ -182,10 +188,12 @@ def unique_batch_inst(codes: torch.Tensor, k: int, size: int):
     Extra keys: s_words (folded key words, ascending, the invalid all-ones
     records last) and s_pos (int32 position of each sorted record). The
     multi-batch profile pass joins this stream against the merged table
-    (profile_join_inst) with no re-upload and no canonical recompute."""
-    pos = torch.arange(size, dtype=torch.int32, device=codes.device)
-    s_words, (s_pos,), ninv = _sorted_keys(codes, k, size, (pos,))
-    out = _uniques(s_words, ninv, size)
+    (profile_join_inst) with no re-upload and no canonical recompute.
+    Traced: the span dedup."""
+    with trace.span("dedup"):
+        pos = torch.arange(size, dtype=torch.int32, device=codes.device)
+        s_words, (s_pos,), ninv = _sorted_keys(codes, k, size, (pos,))
+        out = _uniques(s_words, ninv, size)
     out.update(s_words=s_words, s_pos=s_pos)
     return out
 
@@ -223,7 +231,15 @@ def merge_unique_blocks(words, counts, want_back: bool = False):
     out-of-core profile pass reads its instances' counts from it. The input
     index rides the sort; each sorted record gathers its segment's total by
     its segment index (the running count of run starts), and a scatter by
-    the input index puts the totals back in input order."""
+    the input index puts the totals back in input order.
+
+    Traced: the span merge, and the wait bincount (torch.bincount on the
+    card reads its values' least and greatest on the host)."""
+    with trace.span("merge"):
+        return _merge_unique_blocks(words, counts, want_back)
+
+
+def _merge_unique_blocks(words, counts, want_back):
     size = counts.numel()
     values = (counts,)
     if want_back:
@@ -244,7 +260,8 @@ def merge_unique_blocks(words, counts, want_back: bool = False):
     seg_counts = torch.where(real, seg["seg_counts"], 0)
     vals = torch.where(real, torch.clamp(seg_counts, max=HIST_HIGH),
                        HIST_HIGH + 1)
-    hist = torch.bincount(vals, minlength=HIST_HIGH + 2)[: HIST_HIGH + 1]
+    with trace.wait("bincount"):
+        hist = torch.bincount(vals, minlength=HIST_HIGH + 2)[: HIST_HIGH + 1]
     out = dict(
         seg_words=tuple(torch.where(real, w, ONES) for w in seg["seg_words"]),
         seg_counts=seg_counts, nuniq=real.sum(), hist=hist)
@@ -326,7 +343,8 @@ def segmented_count(s_words, want_elem_counts: bool = False,
     elif want_hist:
         from fastk_tpu_torch.ops.histker import run_hist, start_words
 
-        valid_end = size - int(rec_invalid.sum())
+        with trace.wait("count_invalid"):
+            valid_end = size - int(rec_invalid.sum())
         out["hist"], _ = run_hist(start_words(s_words, valid_end), valid_end)
     if want_elem_counts:
         starts = run_starts(s_words)
@@ -394,10 +412,12 @@ def profile_join(table_words, table_counts, codes: torch.Tensor, k: int,
     (see _join_counts); invalid positions get 0.
 
     table_words: tuple of W int64 [A], sorted unique keys (all-ones at empty
-    slots); table_counts: int32 [A], 0 at empty slots."""
-    words, invalid = canonical_kmers(codes, k, size)
-    return _join_counts(table_words, table_counts,
-                        fold_invalid(words, invalid))
+    slots); table_counts: int32 [A], 0 at empty slots. Traced: the span
+    join."""
+    with trace.span("join"):
+        words, invalid = canonical_kmers(codes, k, size)
+        return _join_counts(table_words, table_counts,
+                            fold_invalid(words, invalid))
 
 
 def profile_join_keys(table_words, table_counts, q_words):
@@ -409,5 +429,6 @@ def profile_join_keys(table_words, table_counts, q_words):
 def profile_join_inst(table_words, table_counts, s_words, s_pos):
     """Join a batch's retained sorted instance stream (unique_batch_inst's
     s_words and s_pos) against a sorted table: clipped int16 counts in
-    position order."""
-    return _join_counts(table_words, table_counts, s_words, q_pos=s_pos)
+    position order. Traced: the span join."""
+    with trace.span("join"):
+        return _join_counts(table_words, table_counts, s_words, q_pos=s_pos)

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import torch
 
+from fastk_tpu_torch import trace
 from fastk_tpu_torch.formats.hist import HIST_HIGH
 from fastk_tpu_torch.ops.count import fold_invalid, run_starts, sort_keys
 from fastk_tpu_torch.ops.kmers import canonical_kmers
@@ -50,7 +51,8 @@ def hist_device_part(codes: torch.Tensor, k: int, size: int):
     ninv = invalid.sum()
     s_words, _ = sort_keys(fold_invalid(words, invalid))
     del words, invalid
-    valid_end = size - int(ninv)
+    with trace.wait("hist_ninv"):
+        valid_end = size - int(ninv)
     return start_words(s_words, valid_end), valid_end
 
 

@@ -17,7 +17,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from fastk_tpu_torch import native
+from fastk_tpu_torch import native, trace
 
 EXC_PAD = 0xFFFFFFFF  # exception-list padding; unpacks into a dump slot
 
@@ -47,18 +47,20 @@ def pack_stream_words(codes: np.ndarray, cap_step: int = 1 << 12
     """Pack a host code stream into (uint32 words, uint32 exceptions).
 
     The stream is padded with code 4 to a multiple of 16 codes. Uses the
-    native packer when it is available, the numpy one otherwise."""
-    pad = (-len(codes)) % 16
-    if pad:
-        codes = np.concatenate([codes, np.full(pad, 4, np.uint8)])
-    got = native.pack2(codes, ecap=max(cap_step, len(codes)))
-    if got is None:
-        packed, exc_padded = pack_stream(codes, cap_step)
-    else:
-        packed, exc, ne = got
-        m = max(cap_step, -(-ne // cap_step) * cap_step)
-        exc_padded = np.full(m, EXC_PAD, dtype=np.uint32)
-        exc_padded[:ne] = exc[:ne]
+    native packer when it is available, the numpy one otherwise. Traced:
+    the span pack."""
+    with trace.span("pack"):
+        pad = (-len(codes)) % 16
+        if pad:
+            codes = np.concatenate([codes, np.full(pad, 4, np.uint8)])
+        got = native.pack2(codes, ecap=max(cap_step, len(codes)))
+        if got is None:
+            packed, exc_padded = pack_stream(codes, cap_step)
+        else:
+            packed, exc, ne = got
+            m = max(cap_step, -(-ne // cap_step) * cap_step)
+            exc_padded = np.full(m, EXC_PAD, dtype=np.uint32)
+            exc_padded[:ne] = exc[:ne]
     return packed.view(np.uint32), exc_padded
 
 
@@ -74,7 +76,8 @@ def unpack_stream(packed: torch.Tensor, exceptions: torch.Tensor, size: int
     idx = exceptions.to(torch.int64)
     idx = torch.where((idx < 0) | (idx > size), size, idx)
     codes = torch.cat([codes, codes.new_zeros(1)])
-    codes[idx] = 4
+    with trace.wait("unpack"):  # the scalar's copy may wait for the card
+        codes[idx] = 4
     return codes[:size]
 
 
@@ -89,10 +92,13 @@ def unpack_words(packed_words: torch.Tensor, exceptions: torch.Tensor,
 def upload_int32(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     """A host 32-bit array as int32 on `device`. On CUDA it is copied into
     pinned memory and uploaded without blocking the host, so host work that
-    follows overlaps device work queued before it."""
-    t = torch.from_numpy(arr.view(np.int32))
-    if device.type == "cuda":
-        t = t.pin_memory().to(device, non_blocking=True)
+    follows overlaps device work queued before it. Traced: the span upload
+    and the counter upload.bytes."""
+    with trace.span("upload"):
+        trace.count("upload.bytes", arr.nbytes)
+        t = torch.from_numpy(arr.view(np.int32))
+        if device.type == "cuda":
+            t = t.pin_memory().to(device, non_blocking=True)
     return t
 
 
@@ -118,15 +124,19 @@ def fetch_u16_async(x: torch.Tensor):
     goes as int16 into pinned memory without blocking the host."""
     h = x.to(torch.int16)
     if h.device.type != "cuda":
-        arr = h.numpy().view(np.uint16)
-        return lambda: arr
+        def wait() -> np.ndarray:
+            with trace.wait("fetch_u16"):
+                return h.numpy().view(np.uint16)
+
+        return wait
     host = torch.empty(h.shape, dtype=torch.int16, pin_memory=True)
     host.copy_(h, non_blocking=True)
     done = torch.cuda.Event()
     done.record()
 
     def wait() -> np.ndarray:
-        done.synchronize()
+        with trace.wait("fetch_u16"):
+            done.synchronize()
         return host.numpy().view(np.uint16)
 
     return wait

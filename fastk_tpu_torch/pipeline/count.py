@@ -36,6 +36,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from fastk_tpu_torch import trace
 from fastk_tpu_torch.formats.hist import HIST_HIGH, Histogram
 from fastk_tpu_torch.formats.ktab import KmerTable, write_ktab
 from fastk_tpu_torch.formats.prof import ProfWriter, encode_profiles_bulk
@@ -149,24 +150,32 @@ class CountOutput:
 
 def _histogram(k: int, hist_bins: torch.Tensor, nvalid: int) -> Histogram:
     """The job's histogram; the instances lost to clipping at 32767 are
-    nvalid - sum(c * hist[c])."""
-    bins = hist_bins.cpu().numpy().astype(np.int64)
-    overflow = nvalid - int(
-        (bins[1:] * np.arange(1, HIST_HIGH + 1, dtype=np.int64)).sum())
-    return Histogram.from_bins(k, bins, overflow)
+    nvalid - sum(c * hist[c]). Traced: part of the span merge, and the wait
+    hist_bins."""
+    with trace.span("merge"):
+        with trace.wait("hist_bins"):
+            bins = hist_bins.cpu().numpy().astype(np.int64)
+        overflow = nvalid - int(
+            (bins[1:] * np.arange(1, HIST_HIGH + 1, dtype=np.int64)).sum())
+        return Histogram.from_bins(k, bins, overflow)
 
 
 def _later(t: torch.Tensor):
     """Start fetching a device scalar; the returned callable waits for the
-    fetch alone, not for device work queued after it."""
+    fetch alone, not for device work queued after it. Traced: the wait
+    later."""
     if t.device.type != "cuda":
-        return lambda: int(t)
-    host = t.to("cpu", non_blocking=True)
-    done = torch.cuda.Event()
-    done.record()
+        host = done = None
+    else:
+        host = t.to("cpu", non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
 
     def wait() -> int:
-        done.synchronize()
+        with trace.wait("later"):
+            if done is None:
+                return int(t)
+            done.synchronize()
         return int(host)
 
     return wait
@@ -193,12 +202,17 @@ def _profiles_from_positions(batch: ReadBatch, pos_counts: np.ndarray, k: int
 def _device_table(table: KmerTable, k: int, dev: torch.device):
     """Host table -> device (words tuple of int64 [n], counts int32 [n]
     clipped at 32767). The join needs no padding: torch has no static
-    shapes to keep."""
-    words = packed_to_words(table.packed, k)
-    counts = np.minimum(table.counts, HIST_HIGH).astype(np.int32)
-    return (tuple(torch.from_numpy(words[:, j].astype(np.int64)).to(dev)
-                  for j in range(words.shape[1])),
-            torch.from_numpy(counts).to(dev))
+    shapes to keep. Traced: the span relative_table.upload, and the wait
+    table_upload (each copy from pageable memory blocks the host)."""
+    def up(a: np.ndarray) -> torch.Tensor:
+        with trace.wait("table_upload"):
+            return torch.from_numpy(a).to(dev)
+
+    with trace.span("relative_table.upload"):
+        words = packed_to_words(table.packed, k)
+        counts = np.minimum(table.counts, HIST_HIGH).astype(np.int32)
+        return (tuple(up(words[:, j].astype(np.int64))
+                      for j in range(words.shape[1])), up(counts))
 
 
 def _table_entries(k: int, table_min: int, words, counts: torch.Tensor,
@@ -207,15 +221,19 @@ def _table_entries(k: int, table_min: int, words, counts: torch.Tensor,
     counts on the device, on the host: (packed keys, uint16 counts clipped
     at 32767). Above -t1 the entries are filtered on the device
     (compact_table_min), so only the kept ones cross to the host: at -t3
-    most uniques are the error tail."""
-    words, counts = tuple(w[:n] for w in words), counts[:n]
-    if table_min > 1:
-        kept = compact_table_min(words, counts, table_min)
-        n = int(kept["nkeep"])
-        words, counts = kept["words"], kept["counts"]
-    u_words = np.stack(words_to_numpy(w[:n] for w in words), axis=1)
-    return (words_to_packed(u_words, k),
-            fetch_u16(torch.clamp(counts[:n], max=HIST_HIGH)))
+    most uniques are the error tail. Traced: the span table_out, and the
+    waits table_nkeep and table_words."""
+    with trace.span("table_out"):
+        words, counts = tuple(w[:n] for w in words), counts[:n]
+        if table_min > 1:
+            kept = compact_table_min(words, counts, table_min)
+            with trace.wait("table_nkeep"):
+                n = int(kept["nkeep"])
+            words, counts = kept["words"], kept["counts"]
+        with trace.wait("table_words"):
+            u_words = np.stack(words_to_numpy(w[:n] for w in words), axis=1)
+        return (words_to_packed(u_words, k),
+                fetch_u16(torch.clamp(counts[:n], max=HIST_HIGH)))
 
 
 def _table(k: int, table_min: int, words, counts: torch.Tensor, n: int,
@@ -227,13 +245,16 @@ def _table(k: int, table_min: int, words, counts: torch.Tensor, n: int,
                                                   counts, n))
     if out_base is None:
         return tab, len(tab)
-    write_ktab(out_base, tab, nparts=out_nparts)
+    with trace.span("ktab_write"):
+        write_ktab(out_base, tab, nparts=out_nparts)
     return None, len(tab)
 
 
 class _ProfSink:
     """Where finished per-batch position counts go: a streaming ProfWriter
-    (out_base set: bounded memory) or an in-memory list of count arrays."""
+    (out_base set: bounded memory) or an in-memory list of count arrays.
+    Traced: the spans prof_out.encode (the encoder) and prof_out.write (the
+    .prof writer)."""
 
     def __init__(self, k: int, out_base: Optional[str], out_nparts: int,
                  nreads: int):
@@ -250,17 +271,20 @@ class _ProfSink:
                   pos_counts: np.ndarray) -> None:
         if self._pw is not None:
             plen = np.maximum(np.asarray(rlen) - self.k + 1, 0)
-            blob, offs = encode_profiles_bulk(
-                pos_counts.astype(np.uint16, copy=False),
-                np.asarray(boff[:-1]), plen)
-            self._pw.add_block(blob, offs)
+            with trace.span("prof_out.encode"):
+                blob, offs = encode_profiles_bulk(
+                    pos_counts.astype(np.uint16, copy=False),
+                    np.asarray(boff[:-1]), plen)
+            with trace.span("prof_out.write"):
+                self._pw.add_block(blob, offs)
         else:
             self.profs.extend(
                 _profiles_from_meta(boff, rlen, pos_counts, self.k))
 
     def close(self) -> None:
         if self._pw is not None:
-            self._pw.close()
+            with trace.span("prof_out.write"):
+                self._pw.close()
 
 
 def count_files(
@@ -312,8 +336,11 @@ def count_files(
 
     def _finalize(res, nuniq, nvalid, size):
         nonlocal nvalid_total
-        nvalid_total += nvalid()
-        keep = min(_trim(nuniq()), size)
+        nv, nu = nvalid(), nuniq()
+        trace.count("dedup.positions", nv)
+        trace.count("dedup.uniques", nu)
+        nvalid_total += nv
+        keep = min(_trim(nu), size)
         # clone: a slice would keep the whole batch-sized tensor alive
         blocks_words.append(tuple(w[:keep].clone() for w in res["seg_words"]))
         blocks_counts.append(res["seg_counts"][:keep].clone())
@@ -386,15 +413,17 @@ def count_files(
     hist = _histogram(k, merged["hist"], nvalid_total)
 
     table = table_entries = None
+    if table_min is not None or profiles:
+        with trace.wait("merge_nuniq"):
+            nuniq = int(merged["nuniq"])
     if table_min is not None:
         table, table_entries = _table(
             k, table_min, merged["seg_words"], merged["seg_counts"],
-            int(merged["nuniq"]), out_base, out_nparts)
+            nuniq, out_base, out_nparts)
 
     profs = None
     if profiles:
         # join against the merged table on the device
-        nuniq = int(merged["nuniq"])
         t_words = tuple(w[:nuniq] for w in merged["seg_words"])
         t_counts = torch.clamp(merged["seg_counts"][:nuniq], max=HIST_HIGH)
         sink = _ProfSink(k, out_base, out_nparts, nreads)
@@ -433,13 +462,15 @@ def _count_single_fused(batch: ReadBatch, k: int, table_min: Optional[int],
     if verbose:
         print(f"  batch 1 (fused): {batch.nreads} reads, "
               f"{batch.totlen} bases", flush=True)
-    nvalid = int(res["nvalid"])
+    with trace.wait("fused_nvalid"):
+        nvalid = int(res["nvalid"])
     hist = _histogram(k, res["hist"], nvalid)
 
     table = table_entries = None
     if table_min is not None:
         # valid segments are the slots before the one trailing invalid one
-        nuniq = int(res["nseg"]) - (1 if nvalid < size else 0)
+        with trace.wait("fused_nseg"):
+            nuniq = int(res["nseg"]) - (1 if nvalid < size else 0)
         table, table_entries = _table(k, table_min, res["seg_words"],
                                       res["seg_counts"], nuniq, out_base,
                                       out_nparts)

@@ -32,8 +32,10 @@ are the JAX package's, and so is the plan:
 The device's memory is FASTK_TPU_HBM_GB when set, else the card's own (13 GB
 on the CPU, as the JAX CLI assumes). FASTK_TPU_BATCH_BASES caps the batch.
 FASTK_TPU_TRACE=<dir> writes a torch.profiler trace of the run (CUDA
-activity included on the card) as Chrome trace JSON into <dir>. On failure
-the partial file-sets are removed.
+activity included on the card) as Chrome trace JSON into <dir>. Under a
+recording profiler (that one, or a caller's) the job keeps a record of its
+spans and counters (``fastk_tpu_torch.trace``), whose fastk:<span> ranges
+share the trace's timeline. On failure the partial file-sets are removed.
 
 Multi-process runs: start one process a card with FASTK_TPU_COORD
 (host:port of rank 0), FASTK_TPU_NPROCS (the number of processes) and
@@ -59,6 +61,7 @@ from typing import List, Optional
 import torch
 import torch.distributed as dist
 
+from fastk_tpu_torch import trace
 from fastk_tpu_torch.formats.hist import write_histogram
 from fastk_tpu_torch.formats.ktab import read_ktab
 from fastk_tpu_torch.io.reader import batched_reads
@@ -311,20 +314,24 @@ def _measure_dedup(inputs, k, batch_bases, hc, bc, dev,
     unique_batch, in a slice of at most max_size positions (the CLI passes
     its -M slice, so that the measurement keeps to -M too). None for an
     empty input or one without a valid position; any other failure
-    raises."""
-    gen = batched_reads(list(inputs), min(batch_bases, 64 << 20), hc=hc,
-                        bc=bc)
-    first = next(gen, None)
-    gen.close()
-    if first is None:
-        return None
-    off, size, pw, exc, blen = next(_packed_slices(first[0].codes, k,
-                                                   max_size))
-    res = unique_batch(upload_packed(pw, exc, blen, dev), k, size)
-    nval = int(res["nvalid"])
-    if nval <= 0:
-        return None
-    return int(res["nuniq"]) / nval
+    raises. Traced: part of the span plan, and the waits plan_nvalid and
+    plan_nuniq."""
+    with trace.span("plan"):
+        gen = batched_reads(list(inputs), min(batch_bases, 64 << 20), hc=hc,
+                            bc=bc)
+        first = next(gen, None)
+        gen.close()
+        if first is None:
+            return None
+        off, size, pw, exc, blen = next(_packed_slices(first[0].codes, k,
+                                                       max_size))
+        res = unique_batch(upload_packed(pw, exc, blen, dev), k, size)
+        with trace.wait("plan_nvalid"):
+            nval = int(res["nvalid"])
+        if nval <= 0:
+            return None
+        with trace.wait("plan_nuniq"):
+            return int(res["nuniq"]) / nval
 
 
 def main(argv=None, device="cuda") -> int:
@@ -339,7 +346,8 @@ def main(argv=None, device="cuda") -> int:
     try:
         trace_dir = os.environ.get("FASTK_TPU_TRACE")
         if not trace_dir:
-            return _run(cfg, out_base, dev, pid, nprocs)
+            with trace.job():
+                return _run(cfg, out_base, dev, pid, nprocs)
         from torch.profiler import ProfilerActivity, profile
 
         acts = [ProfilerActivity.CPU]
@@ -348,7 +356,8 @@ def main(argv=None, device="cuda") -> int:
         prof = profile(activities=acts)
         prof.start()
         try:
-            return _run(cfg, out_base, dev, pid, nprocs)
+            with trace.job():
+                return _run(cfg, out_base, dev, pid, nprocs)
         finally:
             prof.stop()
             os.makedirs(trace_dir, exist_ok=True)
@@ -364,7 +373,8 @@ def _run(cfg, out_base: str, dev: torch.device, pid: int = 0,
     timer = _Timer()
     rel = None
     if cfg["ptable"]:
-        rel = read_ktab(cfg["ptable"])
+        with trace.span("relative_table.read"):
+            rel = read_ktab(cfg["ptable"])
         if rel.kmer != cfg["k"]:
             die(f"fastk: -p table k-mer size ({rel.kmer}) != k-mer "
                 f"specified ({cfg['k']})")
@@ -376,7 +386,10 @@ def _run(cfg, out_base: str, dev: torch.device, pid: int = 0,
 
     batch_bases = _batch_bases(cfg)
     heuristic: List[str] = []
-    est_bases = sum(_est_base_bytes(f, heuristic) for f in cfg["inputs"])
+    with trace.span("plan"):
+        est_bases = sum(_est_base_bytes(f, heuristic) for f in cfg["inputs"])
+        hbm = _device_budget(dev)
+        parts, part_cap = _ooc_plan(est_bases, cfg["M"], cfg["p"], hbm)
     if cfg["v"] and heuristic:
         print("  base estimate for "
               + ", ".join(heuristic[:4])
@@ -384,8 +397,6 @@ def _run(cfg, out_base: str, dev: torch.device, pid: int = 0,
               + " is a container heuristic (x6); the measured first-batch"
               " plan and part sub-splitting absorb the error",
               file=sys.stderr)
-    hbm = _device_budget(dev)
-    parts, part_cap = _ooc_plan(est_bases, cfg["M"], cfg["p"], hbm)
     nparts = max(1, cfg["T"])
     slice_positions = _slice_positions(
         cfg["M"], MESH_SLICE_BYTES if nprocs > 1 else SLICE_BYTES)
@@ -468,7 +479,8 @@ def _run(cfg, out_base: str, dev: torch.device, pid: int = 0,
             timer.phase()
         # .ktab and .prof were streamed by the pipeline
         if rel is None:
-            write_histogram(out_base, out.hist)
+            with trace.span("hist_write"):
+                write_histogram(out_base, out.hist)
             if cfg["t"] is not None and cfg["v"]:
                 print(f"  There are {print_number(out.table_entries)} "
                       f"{cfg['k']}-mers that occur {cfg['t']}-or-more "
