@@ -1,9 +1,13 @@
-"""2-bit packed transfer of code streams: host packer and device unpacker.
+"""Host-to-device transfer of code streams, and the 2-bit packed form.
 
-Port of ``fastk_tpu/ops/pack.py``. The host packs codes 4 bases a byte (code
-p at bits 2*(p%4) of byte p//4) and lists the positions of codes >= 4
-(sentinels, N's) apart; the device unpacks. The bytes are moved as int32
-words, little-endian, so code p sits at bits 2*(p%16) of word p//16.
+A slice's first trip to the device carries its uint8 codes as they are
+(``device_codes``: 0..3 for bases, 4 for sentinels and N's), since the host
+already holds them and the copy costs milliseconds. The 2-bit packed form,
+ported from ``fastk_tpu/ops/pack.py``, is for a stream the host keeps for a
+later upload: the host packs codes 4 bases a byte (code p at bits 2*(p%4) of
+byte p//4) and lists the positions of codes >= 4 apart; the device unpacks.
+The bytes are moved as int32 words, little-endian, so code p sits at bits
+2*(p%16) of word p//16.
 
 Count arrays come back through ``fetch_u16``: the device keeps them in a
 signed type (torch's uint16 kernels are thin) and the host views the int16
@@ -105,15 +109,22 @@ def upload_int32(arr: np.ndarray, device: torch.device) -> torch.Tensor:
 def upload_packed(pw: np.ndarray, exc: np.ndarray, n: int,
                   device: torch.device) -> torch.Tensor:
     """Host packed words and exceptions -> device codes [n], each uploaded
-    by upload_int32."""
+    by upload_int32. Traced: the counter upload.packed_slices."""
+    trace.count("upload.packed_slices", 1)
     return unpack_words(upload_int32(pw, device), upload_int32(exc, device),
                         n)
 
 
 def device_codes(codes: np.ndarray, device: torch.device) -> torch.Tensor:
-    """Host codes -> device codes through the 2-bit packed transfer."""
-    pw, exc = pack_stream_words(codes)
-    return upload_packed(pw, exc, len(codes), device)
+    """Host uint8 codes -> the same codes on `device`, a new tensor. On CUDA
+    the copy reads the host array where it lies (pageable) and is queued
+    without a stream sync. Traced: the span upload, and the counters
+    upload.bytes and upload.raw_slices."""
+    with trace.span("upload"):
+        trace.count("upload.bytes", codes.nbytes)
+        trace.count("upload.raw_slices", 1)
+        return torch.from_numpy(codes).to(device, non_blocking=True,
+                                          copy=True)
 
 
 def fetch_u16_async(x: torch.Tensor):

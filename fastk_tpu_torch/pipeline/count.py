@@ -18,9 +18,14 @@ Port of ``fastk_tpu/pipeline/count.py``:
   (``profile_join``);
 - ``-p:<table>`` (relative_table): no counting pass, only the join.
 
+A device slice's codes go to the device as bytes on their first trip
+(``device_codes``). The host packs a slice 2 bits a base only where it keeps
+the packed form for a second upload: a ``-p`` batch whose instance streams do
+not all fit the budget, and every batch of ``-p:<table>``.
+
 Host reading, packing and the file formats (``fastk_tpu_torch.io.reader``,
 ``fastk_tpu_torch.formats``, the native packer and profile encoder) are the
-port's copies of the JAX package's, which write the same bytes. Batch i+1's parse, pack and upload overlap batch i's
+port's copies of the JAX package's, which write the same bytes. Batch i+1's parse and upload overlap batch i's
 device work, and in the profile pass batch i+1's join overlaps batch i's
 fetch and encode: the only waits are for one batch's counts.
 """
@@ -93,34 +98,25 @@ def _pad_codes(batch: ReadBatch, k: int, size: int) -> np.ndarray:
     return codes
 
 
+def _slicing(n: int, k: int, max_size: int = MAX_DEVICE_POSITIONS):
+    """(size, count) of the device slices of n codes: count windows of size
+    start positions each, at least one."""
+    size = min(_round_size(n, k), max_size)
+    return size, max(1, -(-n // size))
+
+
 def _code_slices(codes: np.ndarray, k: int,
                  max_size: int = MAX_DEVICE_POSITIONS):
     """Yield (offset, size, padded slice) windows of at most max_size start
-    positions; slice i covers the starts [offset, offset + size) and carries
-    the k-1 halo after them."""
-    n = len(codes)
-    size = min(_round_size(n, k), max_size)
+    positions (_slicing); slice i covers the starts [offset, offset + size)
+    and carries the k-1 halo after them, padded with code 4."""
+    size, count = _slicing(len(codes), k, max_size)
     pad = pad_needed(k)
-    off = 0
-    while off < n or off == 0:
-        take = min(size, max(n - off, 0))
+    for off in range(0, count * size, size):
         buf = np.full(size + pad, 4, dtype=np.uint8)
-        chunk = codes[off: off + take + pad]
+        chunk = codes[off: off + size + pad]
         buf[: len(chunk)] = chunk
         yield off, size, buf
-        off += size
-        if take < size:
-            break
-
-
-def _packed_slices(codes: np.ndarray, k: int,
-                   max_size: int = MAX_DEVICE_POSITIONS):
-    """_code_slices, packed for transfer: yields (off, size, words,
-    exceptions, slice length). The packed form is what the profile pass
-    keeps of a batch whose instance stream is not on the device."""
-    for off, size, buf in _code_slices(codes, k, max_size):
-        pw, exc = pack_stream_words(buf)
-        yield off, size, pw, exc, len(buf)
 
 
 def _trim(n: int) -> int:
@@ -326,7 +322,9 @@ def count_files(
         return _count_single_hist(first_two[0], k, verbose, dev)
 
     metas = []  # per batch: (boff, rlen, number of codes)
-    packed_store = []  # per batch: its packed slices, kept for profiles
+    # per batch: its slices (off, size, packed words, exceptions, codes
+    # packed), the packed form kept only where the join uploads it again
+    packed_store = []
     inst_store = []  # per batch: (off, size, s_words, s_pos) on the device
     inst_budget = int(os.environ.get("FASTK_TPU_INST_HBM", DEFAULT_INST_HBM))
     inst_bytes = 0
@@ -349,35 +347,41 @@ def count_files(
     for batch in batches:
         metas.append((np.asarray(batch.boff), np.asarray(batch.rlen),
                       len(batch.codes)))
+        # decided before the batch's first slice: the join reads the
+        # batch's instance streams only when every slice keeps its own, and
+        # uploads the packed slices again otherwise
+        size, count = _slicing(len(batch.codes), k)
+        keep_inst = (profiles and relative_table is None
+                     and inst_bytes + count * _inst_bytes(size, k)
+                     <= inst_budget)
+        keep_packed = profiles and not keep_inst
         if profiles:
             packed_store.append([])
             inst_store.append([])
-        for off, size, pw, exc, blen in _packed_slices(batch.codes, k):
+        for off, size, buf in _code_slices(batch.codes, k):
+            if relative_table is None:
+                codes = device_codes(buf, dev)
+                if keep_inst:
+                    res = unique_batch_inst(codes, k, size)
+                    inst_store[-1].append(
+                        (off, size, res.pop("s_words"), res.pop("s_pos")))
+                    inst_bytes += _inst_bytes(size, k)
+                else:
+                    res = unique_batch(codes, k, size)
+                del codes
+                fetches = (_later(res["nuniq"]), _later(res["nvalid"]))
+                if pending is not None:
+                    _finalize(*pending)
+                pending = (res, *fetches, size)
+                del res
             if profiles:
-                packed_store[-1].append((off, size, pw, exc, blen))
-            if relative_table is not None:
-                continue
-            codes = upload_packed(pw, exc, blen, dev)
-            if profiles and inst_bytes + _inst_bytes(size, k) <= inst_budget:
-                res = unique_batch_inst(codes, k, size)
-                inst_store[-1].append(
-                    (off, size, res.pop("s_words"), res.pop("s_pos")))
-                inst_bytes += _inst_bytes(size, k)
-            else:
-                res = unique_batch(codes, k, size)
-            del codes
-            fetches = (_later(res["nuniq"]), _later(res["nvalid"]))
-            if pending is not None:
-                _finalize(*pending)
-            pending = (res, *fetches, size)
-            del res
-        if (profiles and inst_store[-1]
-                and len(inst_store[-1]) == len(packed_store[-1])):
-            # every slice of this batch has its instance stream on the
-            # device: drop the packed bytes, keep the slice geometry
-            packed_store[-1] = [(off, size, None, None, blen)
-                                for off, size, _pw, _exc, blen
-                                in packed_store[-1]]
+                # packed while the device counts the slice, without the
+                # code-4 fill past the batch's end, which _kept_codes
+                # writes back on the device
+                n = min(len(buf), len(batch.codes) - off)
+                pw, exc = (pack_stream_words(buf[:n]) if keep_packed
+                           else (None, None))
+                packed_store[-1].append((off, size, pw, exc, n))
         if verbose:
             print(f"  batch {len(metas)}: {len(metas[-1][1])} reads, "
                   f"{int(metas[-1][1].sum())} bases", flush=True)
@@ -509,11 +513,22 @@ def _drain(metas, joins, sink: _ProfSink) -> None:
         _emit(*pending)
 
 
+def _kept_codes(pw, exc, n: int, length: int, dev) -> torch.Tensor:
+    """A kept packed slice on the device: its n packed codes, then code 4
+    up to the slice's length."""
+    codes = upload_packed(pw, exc, n, dev)
+    if n == length:
+        return codes
+    out = torch.full((length,), 4, dtype=torch.uint8, device=dev)
+    out[:n] = codes
+    return out
+
+
 def _packed_joins(pslices, k, t_words, t_counts, dev):
-    return [(off, size, profile_join(t_words, t_counts,
-                                     upload_packed(pw, exc, blen, dev), k,
-                                     size))
-            for off, size, pw, exc, blen in pslices]
+    pad = pad_needed(k)
+    return [(off, size, profile_join(
+        t_words, t_counts, _kept_codes(pw, exc, n, size + pad, dev), k,
+        size)) for off, size, pw, exc, n in pslices]
 
 
 def _join_profiles_any(metas, inst_store, packed_store, k, t_words,
@@ -526,7 +541,7 @@ def _join_profiles_any(metas, inst_store, packed_store, k, t_words,
         for i, pslices in enumerate(packed_store):
             islices = inst_store[i]
             inst_store[i] = []  # free each stream once it is joined
-            if islices and len(islices) == len(pslices):
+            if islices:
                 yield [(off, size, profile_join_inst(t_words, t_counts,
                                                      s_words, s_pos))
                        for off, size, s_words, s_pos in islices]

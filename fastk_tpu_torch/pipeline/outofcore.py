@@ -51,13 +51,13 @@ from fastk_tpu_torch.ops.count import (
     unique_batch_inst,
 )
 from fastk_tpu_torch.ops.kmers import nwords
-from fastk_tpu_torch.ops.pack import fetch_u16, upload_packed
+from fastk_tpu_torch.ops.pack import device_codes, fetch_u16
 from fastk_tpu_torch.ops.tables import pad_counted
 from fastk_tpu_torch.pipeline.count import (
     MAX_DEVICE_POSITIONS,
     CountOutput,
+    _code_slices,
     _later,
-    _packed_slices,
     _profiles_from_meta,
     _table_entries,
 )
@@ -443,9 +443,9 @@ def count_files_ooc(
             if len(metas) - 1 < bdone:
                 del batch  # spilled by the interrupted run
                 continue
-            for off, size, pw, exc, blen in _packed_slices(
-                    batch.codes, k, slice_positions):
-                codes = upload_packed(pw, exc, blen, dev)
+            for off, size, buf in _code_slices(batch.codes, k,
+                                               slice_positions):
+                codes = device_codes(buf, dev)
                 if profiles:
                     res = unique_batch_inst(codes, k, size)
                     del res["s_words"]

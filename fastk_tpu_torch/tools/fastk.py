@@ -66,12 +66,12 @@ from fastk_tpu_torch.formats.hist import write_histogram
 from fastk_tpu_torch.formats.ktab import read_ktab
 from fastk_tpu_torch.io.reader import batched_reads
 from fastk_tpu_torch.ops.count import unique_batch
-from fastk_tpu_torch.ops.pack import upload_packed
+from fastk_tpu_torch.ops.pack import device_codes
 from fastk_tpu_torch.ops.kmers import pad_needed
 from fastk_tpu_torch.parallel.multihost import init_from_env, rank_device
 from fastk_tpu_torch.pipeline.count import (
     MAX_DEVICE_POSITIONS,
-    _packed_slices,
+    _code_slices,
     count_files,
 )
 from fastk_tpu_torch.pipeline.outofcore import count_files_ooc
@@ -310,7 +310,7 @@ def _ooc_plan(est_bases: int, M: float, profiles: bool, hbm: float) -> tuple:
 def _measure_dedup(inputs, k, batch_bases, hc, bc, dev,
                    max_size: int = MAX_DEVICE_POSITIONS) -> Optional[float]:
     """The first slice's dedup ratio (uniques / valid positions), counted
-    on the device: one bounded batch read, packed, uploaded and put through
+    on the device: one bounded batch read, uploaded and put through
     unique_batch, in a slice of at most max_size positions (the CLI passes
     its -M slice, so that the measurement keeps to -M too). None for an
     empty input or one without a valid position; any other failure
@@ -323,9 +323,8 @@ def _measure_dedup(inputs, k, batch_bases, hc, bc, dev,
         gen.close()
         if first is None:
             return None
-        off, size, pw, exc, blen = next(_packed_slices(first[0].codes, k,
-                                                       max_size))
-        res = unique_batch(upload_packed(pw, exc, blen, dev), k, size)
+        _off, size, buf = next(_code_slices(first[0].codes, k, max_size))
+        res = unique_batch(device_codes(buf, dev), k, size)
         with trace.wait("plan_nvalid"):
             nval = int(res["nvalid"])
         if nval <= 0:

@@ -19,6 +19,7 @@ import fastk_tpu_torch.pipeline.count as tpipe
 import fastk_tpu_torch.tools.fastk as cli
 from fastk_tpu_torch import trace
 from fastk_tpu_torch.formats.hist import read_histogram
+from fastk_tpu_torch.ops.pack import pack_stream_words
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 INPUTS = os.path.join(HERE, "golden", "inputs")
@@ -26,21 +27,26 @@ SMALL = os.path.join(INPUTS, "small.fasta")
 BATCH = 20000  # bases a batch: the small inputs run the multi-batch path
 
 INGEST = {"reader.raw", "reader.snap", "reader.wait", "reader.parse",
-          "reader.batch", "pack", "upload"}
+          "reader.batch", "upload"}
 # the spans of each job kind, on the path the benchmark's jobs take
 SPANS = {
+    # the small inputs' instance streams fit the budget: nothing is packed
     "t4p": INGEST | {
         "job", "plan", "dedup", "merge", "table_out", "ktab_write",
         "hist_write", "join", "prof_out.encode", "prof_out.write",
-        "wait.later", "wait.fetch_u16", "wait.unpack", "wait.bincount",
+        "wait.later", "wait.fetch_u16", "wait.bincount",
         "wait.hist_bins", "wait.merge_nuniq", "wait.table_nkeep",
         "wait.table_words", "wait.plan_nvalid", "wait.plan_nuniq",
         "wait.segment_end"},
+    # every slice is packed, kept and uploaded once, for the join
     "relative": INGEST | {
-        "job", "plan", "relative_table.read", "relative_table.upload",
-        "join", "prof_out.encode", "prof_out.write", "wait.fetch_u16",
-        "wait.unpack", "wait.table_upload"},
+        "job", "plan", "pack", "relative_table.read",
+        "relative_table.upload", "join", "prof_out.encode",
+        "prof_out.write", "wait.fetch_u16", "wait.unpack",
+        "wait.table_upload"},
 }
+# the spans of the packed form, which the t4p job does not take
+PACKED = {"pack", "wait.unpack"}
 
 
 def _raise(*args, **kwargs):
@@ -74,18 +80,26 @@ def _traced(argv, tmp_path):
     return jobs[-1], names
 
 
-def _upload_bytes(path, k, slices_of_first=False):
-    """Bytes of the packed words and exceptions of every slice the job
-    uploads: every slice of every batch, and, for the plan, the first
-    batch's first slice again."""
-    total = first = 0
+def _uploads(path, k, packed=False, slices_of_first=False):
+    """(bytes, slices) of every slice the job uploads: every slice of every
+    batch, as its codes or as the packed words and exceptions of its codes
+    before the batch's end, and, for the plan, the first batch's first
+    slice again, as codes."""
+    total = first = slices = 0
     for i, (batch, _) in enumerate(treader.batched_reads([path], BATCH)):
-        for j, (_o, _s, pw, exc, _n) in enumerate(
-                tpipe._packed_slices(batch.codes, k)):
-            total += pw.nbytes + exc.nbytes
+        for j, (off, _s, buf) in enumerate(
+                tpipe._code_slices(batch.codes, k)):
+            if packed:
+                pw, exc = pack_stream_words(buf[:len(batch.codes) - off])
+                total += pw.nbytes + exc.nbytes
+            else:
+                total += buf.nbytes
+            slices += 1
             if i == 0 and j == 0:
-                first = pw.nbytes + exc.nbytes
-    return total + (first if slices_of_first else 0)
+                first = buf.nbytes
+    if slices_of_first:
+        return total + first, slices + 1
+    return total, slices
 
 
 def _bases(path):
@@ -141,7 +155,11 @@ def test_t4p_job_record(tmp_path, multi_batch):
     c = rec["counters"]
     bases, first = _bases(SMALL)
     assert c["reader.bases"] == bases + first  # the plan reads batch 1 again
-    assert c["upload.bytes"] == _upload_bytes(SMALL, k, slices_of_first=True)
+    assert not PACKED & set(rec["spans"])
+    nbytes, slices = _uploads(SMALL, k, slices_of_first=True)
+    assert c["upload.bytes"] == nbytes
+    assert c["upload.raw_slices"] == slices
+    assert "upload.packed_slices" not in c
     hist = read_histogram(str(tmp_path / "o"))
     assert c["dedup.positions"] == hist.total_instances()
     assert 0 < c["dedup.uniques"] <= c["dedup.positions"]
@@ -162,7 +180,10 @@ def test_relative_job_record(tmp_path, multi_batch):
     assert "dedup" not in rec["spans"] and "merge" not in rec["spans"]
     c = rec["counters"]
     assert c["reader.bases"] == _bases(query)[0]
-    assert c["upload.bytes"] == _upload_bytes(query, 40)
+    nbytes, slices = _uploads(query, 40, packed=True)
+    assert c["upload.bytes"] == nbytes
+    assert c["upload.packed_slices"] == rec["spans"]["pack"]["calls"] == slices
+    assert "upload.raw_slices" not in c
     assert "dedup.positions" not in c
 
 
