@@ -12,11 +12,11 @@ sort key here is a packed int64 whatever the word width. Clipped counts
 fetch_u16).
 
 unique_batch and merge_unique_blocks return their counts as device tensors,
-so the pipeline's host work on the next batch overlaps the device work; but
-segment_reduce's store of one host scalar waits for the card (the wait
-segment_end), and merge_unique_blocks' torch.bincount reads its values'
-extremes on the host. count_batch also waits for the number of valid
-positions that the run-length kernel needs.
+so the pipeline's host work on the next batch overlaps the device work:
+unique_batch queues a whole slice without the host waiting for the card.
+merge_unique_blocks' torch.bincount reads its values' extremes on the host,
+and count_batch waits for the number of valid positions that the run-length
+kernel needs.
 """
 
 from __future__ import annotations
@@ -108,25 +108,23 @@ def segment_reduce(s_words, weights=None):
     Returns dict(nseg int64 scalar tensor — number of segments, the trailing
     all-ones block being one of them; seg_counts int32 [size] — slot j holds
     segment j's sum, 0 beyond nseg; seg_words — tuple of int64 [size], slot j
-    holds segment j's key, all-ones beyond nseg). Traced: the wait
-    segment_end."""
+    holds segment j's key, all-ones beyond nseg). Does not wait for the
+    device."""
     size = s_words[0].numel()
     dev = s_words[0].device
     starts = run_starts(s_words)
     slot = torch.cumsum(starts, 0) - 1  # segment of each record
     nseg = slot[-1] + 1
     idx = torch.arange(size, device=dev)
-    # record index of each segment's start, size beyond nseg (one dump slot)
-    seg_start = torch.full((size + 1,), size, dtype=torch.int64, device=dev)
-    seg_start[torch.where(starts, slot, size)] = idx
-    with trace.wait("segment_end"):  # the scalar's copy waits for the card
-        seg_start[size] = size  # the dump slot doubles as the last end bound
-    if weights is None:
-        bounds = seg_start
-    else:
+    # record index of each segment's start, size beyond nseg: slot size
+    # keeps its fill as the last end bound, and size + 1 is the dump slot
+    seg_start = torch.full((size + 2,), size, dtype=torch.int64, device=dev)
+    seg_start[torch.where(starts, slot, size + 1)] = idx
+    bounds = seg_start[: size + 1]
+    if weights is not None:
         bounds = torch.cat([weights.new_zeros(1, dtype=torch.int64),
-                            torch.cumsum(weights, 0, dtype=torch.int64)])
-        bounds = bounds[seg_start]
+                            torch.cumsum(weights, 0, dtype=torch.int64)]
+                           )[bounds]
     seg_counts = (bounds[1:] - bounds[:-1]).to(torch.int32)
     seg_start = seg_start[:size]
     in_seg = idx < nseg

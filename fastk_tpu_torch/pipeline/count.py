@@ -25,9 +25,18 @@ not all fit the budget, and every batch of ``-p:<table>``.
 
 Host reading, packing and the file formats (``fastk_tpu_torch.io.reader``,
 ``fastk_tpu_torch.formats``, the native packer and profile encoder) are the
-port's copies of the JAX package's, which write the same bytes. Batch i+1's parse and upload overlap batch i's
-device work, and in the profile pass batch i+1's join overlaps batch i's
-fetch and encode: the only waits are for one batch's counts.
+port's copies of the JAX package's, which write the same bytes.
+
+A job that keeps nothing per batch for a later pass (neither profiles nor a
+relative table: the histogram and -t jobs) reads its input in batches of at
+most one device slice, so the card counts slice i while the reader reads
+slice i+1; the first two batches are read before the first slice is queued,
+since they decide whether the job is one batch. Each slice is queued whole
+without the host waiting for the card, and its counts are fetched one slice
+later. A -p job reads batches of batch_bases, since its instance budget,
+packed store and profile encode are decided a batch; its slices' device work
+overlaps the packing of the kept slices, and in the profile pass batch
+i+1's join overlaps batch i's fetch and encode.
 """
 
 from __future__ import annotations
@@ -307,8 +316,13 @@ def count_files(
 
     out_base: stream the .ktab and .prof file-sets to disk (out_nparts parts
     each) instead of returning them (table and profiles come back None,
-    table_entries set). The histogram is always returned, never written."""
+    table_entries set). The histogram is always returned, never written.
+    Traced: the counter count.slices_ahead, the device slices queued while
+    the reader still had input to read."""
     dev = resolve_device(device)
+    if not profiles and relative_table is None:
+        # nothing is kept a batch: a batch is one device slice
+        batch_bases = min(batch_bases, MAX_DEVICE_POSITIONS - pad_needed(k))
     gen = batched_reads(list(paths), batch_bases, hc=hc, bc=bc)
     first_two = [batch for batch, _ordinal in itertools.islice(gen, 2)]
     single = (len(first_two) == 1
@@ -331,6 +345,7 @@ def count_files(
     blocks_words, blocks_counts = [], []
     nvalid_total = 0
     pending = None
+    queued = ahead = 0  # slices queued; those queued before the last read
 
     def _finalize(res, nuniq, nvalid, size):
         nonlocal nvalid_total
@@ -344,7 +359,9 @@ def count_files(
         blocks_counts.append(res["seg_counts"][:keep].clone())
 
     batches = itertools.chain(first_two, (b for b, _ordinal in gen))
-    for batch in batches:
+    for i, batch in enumerate(batches):
+        if i >= len(first_two):  # read after the slices before it were queued
+            ahead = queued
         metas.append((np.asarray(batch.boff), np.asarray(batch.rlen),
                       len(batch.codes)))
         # decided before the batch's first slice: the join reads the
@@ -369,6 +386,7 @@ def count_files(
                 else:
                     res = unique_batch(codes, k, size)
                 del codes
+                queued += 1
                 fetches = (_later(res["nuniq"]), _later(res["nvalid"]))
                 if pending is not None:
                     _finalize(*pending)
@@ -389,6 +407,7 @@ def count_files(
     if pending is not None:
         _finalize(*pending)
         pending = None
+    trace.count("count.slices_ahead", ahead)
 
     rlens = [m[1] for m in metas]
     nreads = sum(len(r) for r in rlens)

@@ -100,3 +100,59 @@ def test_unique_batch_and_merge_match_jax(k):
         assert np.array_equal(g, np.asarray(w))
     assert np.array_equal(got["hist"].numpy(),
                           np.asarray(want["hist"]).astype(np.int64))
+
+
+ONES = tcount.ONES
+
+
+def _sorted_records(case: str) -> np.ndarray:
+    """Sorted two-word keys [size, 2] of one segment layout."""
+    rng = np.random.default_rng(22)
+    if case == "one_run":
+        keys = np.tile([[5, 9]], (11, 1))
+    elif case == "all_distinct":
+        keys = np.stack([np.zeros(13), np.arange(13) * 3 + 1], axis=1)
+    elif case == "trailing_ones":
+        lens = rng.integers(1, 5, size=6)
+        keys = np.concatenate([np.tile([[i // 2, i]], (n, 1))
+                               for i, n in enumerate(lens)]
+                              + [np.full((4, 2), ONES)])
+    elif case == "all_ones":
+        keys = np.full((6, 2), ONES)
+    else:  # size_one
+        keys = np.array([[7, 3]])
+    return keys.astype(np.int64)
+
+
+def _plain_segments(keys: np.ndarray, weights: np.ndarray):
+    """(nseg, counts, words [nseg, 2]) by a loop over the records."""
+    starts = [0] + [i for i in range(1, len(keys))
+                    if (keys[i] != keys[i - 1]).any()]
+    ends = starts[1:] + [len(keys)]
+    counts = [int(weights[s:e].sum()) for s, e in zip(starts, ends)]
+    return len(starts), counts, keys[starts]
+
+
+@pytest.mark.parametrize("weighted", [False, True], ids=["runs", "weights"])
+@pytest.mark.parametrize("case", ["one_run", "all_distinct", "trailing_ones",
+                                  "all_ones", "size_one"])
+def test_segment_reduce_against_a_plain_segment_sum(case, weighted):
+    """segment_reduce's dump slot sits past the last end bound: the run
+    starts' scatter never writes the bound, which keeps its fill."""
+    keys = _sorted_records(case)
+    size = len(keys)
+    weights = (np.random.default_rng(size).integers(1, 6, size).astype(
+        np.int32) if weighted else np.ones(size, np.int32))
+    nseg, counts, words = _plain_segments(keys, weights)
+    s_words = tuple(torch.from_numpy(keys[:, j].copy()) for j in range(2))
+    got = tcount.segment_reduce(
+        s_words, weights=torch.from_numpy(weights) if weighted else None)
+    assert int(got["nseg"]) == nseg
+    want_counts = np.zeros(size, np.int32)
+    want_counts[:nseg] = counts
+    assert got["seg_counts"].dtype == torch.int32
+    assert np.array_equal(got["seg_counts"].numpy(), want_counts)
+    for j, w in enumerate(got["seg_words"]):
+        want = np.full(size, ONES, np.int64)
+        want[:nseg] = words[:, j]
+        assert np.array_equal(w.numpy(), want)

@@ -2,7 +2,9 @@
 a slice 2 bits a base only where it keeps the packed form for a second
 upload. Each job kind of the port against fastk_tpu (exact .hist, .ktab and
 .prof), with the slices it uploaded as codes (upload.raw_slices) and as
-packed words (upload.packed_slices) counted against the path it takes."""
+packed words (upload.packed_slices) counted against the path it takes. A job
+that keeps nothing a batch (histogram, -t) reads batches of one device slice
+and queues each while the reader reads the next (count.slices_ahead)."""
 
 import os
 
@@ -20,7 +22,9 @@ from fastk_tpu.io.reader import batched_reads
 from fastk_tpu.tools.fastk import main as jax_fastk_main
 from fastk_tpu_torch import trace
 from fastk_tpu_torch.formats.ktab import read_ktab
+from fastk_tpu_torch.io.reader import batched_reads as port_batched_reads
 from fastk_tpu_torch.ops import pack as tpack
+from fastk_tpu_torch.ops.kmers import pad_needed
 from fastk_tpu_torch.tools.fastk import main as fastk_main
 
 import gen_data
@@ -49,6 +53,22 @@ def _slices(path, batch_bases):
     """Device slices of each batch, by fastk_tpu's own slicing."""
     return [len(list(jpipe._code_slices(b.codes, K)))
             for b, _ in batched_reads([path], batch_bases)]
+
+
+def _slice_batches(path, cap):
+    """The port's reader batches of a job that keeps nothing a batch, at
+    device slices of cap positions: each is one slice."""
+    sizes = [len(b.codes) for b, _ in port_batched_reads(
+        [path], cap - pad_needed(K))]
+    assert all(n + pad_needed(K) <= cap for n in sizes)
+    return len(sizes)
+
+
+def _ahead(nbatches):
+    """count.slices_ahead of a job of nbatches one-slice batches: the first
+    two are read before the first slice is queued, and each later read
+    follows every slice queued before it."""
+    return nbatches - 1 if nbatches >= 3 else 0
 
 
 def _traced(fn, *args, **kw):
@@ -128,9 +148,59 @@ def test_multi_slice_jobs_upload_codes(tmp_path, reads_path, monkeypatch,
     assert len(slices) == 3 and min(slices) >= 2
     packed = {"none": 0, "all": sum(slices),
               "after_first": sum(slices[1:])}[kept]
-    # every slice goes up once as codes; the join uploads the kept ones
-    assert _uploads(rec) == (sum(slices), packed, packed)
+    # every slice goes up once as codes; the join uploads the kept ones. A
+    # job without profiles reads batches of one slice, not of BATCH bases
+    raw = (sum(slices) if kw.get("profiles")
+           else _slice_batches(reads_path, CAP))
+    assert _uploads(rec) == (raw, packed, packed)
     assert ("wait.unpack" in rec["spans"]) == (packed > 0)
+    assert rec["spans"]["dedup"]["calls"] == raw
+
+
+@pytest.mark.parametrize("cap", [CAP, 2 * CAP, 4 * CAP],
+                         ids=["seven", "four", "two"])
+@pytest.mark.parametrize("kw", [dict(), dict(table_min=2)],
+                         ids=["hist", "table"])
+def test_counting_jobs_read_a_slice_a_batch(tmp_path, reads_path,
+                                            monkeypatch, kw, cap):
+    """The histogram and -t2 jobs read batches of one device slice at
+    the caller's batch_bases, and write fastk_tpu's bytes."""
+    for mod in (jpipe, tpipe):
+        monkeypatch.setattr(mod, "MAX_DEVICE_POSITIONS", cap)
+    nbatches = _slice_batches(reads_path, cap)
+    assert nbatches == {CAP: 7, 2 * CAP: 4, 4 * CAP: 2}[cap]
+    assert len(_slices(reads_path, 64 << 20)) == 1  # fastk_tpu: one batch
+    jax_set, port_set, rec = _both(tmp_path, reads_path, 64 << 20, **kw)
+    assert port_set == jax_set
+    assert any(".ktab" in n for n in port_set) == ("table_min" in kw)
+    c = rec["counters"]
+    assert c["upload.raw_slices"] == rec["spans"]["dedup"]["calls"] == (
+        nbatches)
+    assert c["count.slices_ahead"] == _ahead(nbatches)
+    assert "wait.segment_end" not in rec["spans"]
+
+
+@pytest.mark.parametrize("budget", [None, 0], ids=["fit", "no_room"])
+def test_profile_jobs_keep_their_batches(tmp_path, reads_path, monkeypatch,
+                                         budget):
+    """A -t2 -p job keeps per-batch state for its profile pass, so it reads
+    batches of batch_bases, each in several slices: two batches here, both
+    read before the first slice is queued."""
+    for mod in (jpipe, tpipe):
+        monkeypatch.setattr(mod, "MAX_DEVICE_POSITIONS", CAP)
+    if budget is None:
+        monkeypatch.delenv("FASTK_TPU_INST_HBM", raising=False)
+    else:
+        monkeypatch.setenv("FASTK_TPU_INST_HBM", str(budget))
+    batch = 110_000
+    slices = _slices(reads_path, batch)
+    assert len(slices) == 2 and min(slices) >= 3
+    jax_set, port_set, rec = _both(tmp_path, reads_path, batch, table_min=2,
+                                   profiles=True)
+    assert port_set == jax_set
+    packed = 0 if budget is None else sum(slices)
+    assert _uploads(rec) == (sum(slices), packed, packed)
+    assert rec["counters"]["count.slices_ahead"] == 0
 
 
 def test_relative_profiles_upload_packed(tmp_path, reads_path, monkeypatch):
