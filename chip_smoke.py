@@ -971,7 +971,7 @@ def multi_device_phase(tmp: str, fasta: str, fasta5: str, prof: str,
     )
     from fastk_tpu_torch.ops.histker import run_hist
     from fastk_tpu_torch.ops.kmers import canonical_kmers, nwords, pad_needed
-    from fastk_tpu_torch.ops.pack import device_codes
+    from fastk_tpu_torch.convert import device_codes
     from fastk_tpu_torch.parallel import dist as pdist
     from fastk_tpu_torch.parallel.host import (
         relative_profiles_sharded,
@@ -1425,7 +1425,7 @@ def multi_card_phase(tmp: str, fasta: str, fasta5: str, ooc_base: str,
     from fastk_tpu_torch.formats.hist import write_histogram
     from fastk_tpu_torch.io.reader import batched_reads
     from fastk_tpu_torch.ops.count import count_batch
-    from fastk_tpu_torch.ops.pack import device_codes
+    from fastk_tpu_torch.convert import device_codes
     from fastk_tpu_torch.parallel import launch
     from fastk_tpu_torch.pipeline.count import _pad_codes, _round_size
     from fastk_tpu_torch.tools import fastk as cli
@@ -2636,12 +2636,8 @@ def main() -> int:
         start_words,
     )
     from fastk_tpu_torch.ops.kmers import canonical_kmers
-    from fastk_tpu_torch.ops.pack import (
-        device_codes,
-        fetch_u16,
-        pack_stream_words,
-        upload_packed,
-    )
+    from fastk_tpu_torch.convert import device_codes, fetch_u16
+    from fastk_tpu_torch.ops.pack import pack_stream_words, upload_packed
     from fastk_tpu_torch.pipeline.count import (
         DEFAULT_BATCH_BASES,
         _count_single_fused,

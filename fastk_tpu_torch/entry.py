@@ -31,7 +31,7 @@ from fastk_tpu_torch.formats.prof import read_profiles
 from fastk_tpu_torch.ops.count import count_batch
 from fastk_tpu_torch.ops.histker import run_hist
 from fastk_tpu_torch.ops.kmers import pad_needed
-from fastk_tpu_torch.ops.pack import device_codes
+from fastk_tpu_torch.convert import device_codes
 from fastk_tpu_torch.parallel import launch
 from fastk_tpu_torch.parallel.dist import make_mesh
 from fastk_tpu_torch.parallel.host import count_files_sharded, sharded_count

@@ -24,6 +24,7 @@ from __future__ import annotations
 import torch
 
 from fastk_tpu_torch import trace
+from fastk_tpu_torch.convert import fetch
 from fastk_tpu_torch.formats.hist import HIST_HIGH
 from fastk_tpu_torch.ops.kmers import canonical_kmers
 
@@ -341,8 +342,7 @@ def segmented_count(s_words, want_elem_counts: bool = False,
     elif want_hist:
         from fastk_tpu_torch.ops.histker import run_hist, start_words
 
-        with trace.wait("count_invalid"):
-            valid_end = size - int(rec_invalid.sum())
+        valid_end = size - int(fetch(rec_invalid.sum(), "count_invalid"))
         out["hist"], _ = run_hist(start_words(s_words, valid_end), valid_end)
     if want_elem_counts:
         starts = run_starts(s_words)

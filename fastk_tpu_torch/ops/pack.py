@@ -1,17 +1,13 @@
-"""Host-to-device transfer of code streams, and the 2-bit packed form.
+"""The 2-bit packed form of a code stream.
 
 A slice's first trip to the device carries its uint8 codes as they are
-(``device_codes``: 0..3 for bases, 4 for sentinels and N's), since the host
-already holds them and the copy costs milliseconds. The 2-bit packed form,
-ported from ``fastk_tpu/ops/pack.py``, is for a stream the host keeps for a
-later upload: the host packs codes 4 bases a byte (code p at bits 2*(p%4) of
-byte p//4) and lists the positions of codes >= 4 apart; the device unpacks.
-The bytes are moved as int32 words, little-endian, so code p sits at bits
-2*(p%16) of word p//16.
-
-Count arrays come back through ``fetch_u16``: the device keeps them in a
-signed type (torch's uint16 kernels are thin) and the host views the int16
-bytes as uint16, which is exact for counts clipped at 32767.
+(``convert.device_codes``: 0..3 for bases, 4 for sentinels and N's), since
+the host already holds them and the copy costs milliseconds. The 2-bit
+packed form, ported from ``fastk_tpu/ops/pack.py``, is for a stream the host
+keeps for a later upload: the host packs codes 4 bases a byte (code p at
+bits 2*(p%4) of byte p//4) and lists the positions of codes >= 4 apart; the
+device unpacks. The bytes are moved as int32 words (``convert.upload_int32``),
+little-endian, so code p sits at bits 2*(p%16) of word p//16.
 """
 
 from __future__ import annotations
@@ -22,6 +18,7 @@ import numpy as np
 import torch
 
 from fastk_tpu_torch import native, trace
+from fastk_tpu_torch.convert import upload_int32
 
 EXC_PAD = 0xFFFFFFFF  # exception-list padding; unpacks into a dump slot
 
@@ -93,19 +90,6 @@ def unpack_words(packed_words: torch.Tensor, exceptions: torch.Tensor,
     return unpack_stream(packed_words.view(torch.uint8), exceptions, size)
 
 
-def upload_int32(arr: np.ndarray, device: torch.device) -> torch.Tensor:
-    """A host 32-bit array as int32 on `device`. On CUDA it is copied into
-    pinned memory and uploaded without blocking the host, so host work that
-    follows overlaps device work queued before it. Traced: the span upload
-    and the counter upload.bytes."""
-    with trace.span("upload"):
-        trace.count("upload.bytes", arr.nbytes)
-        t = torch.from_numpy(arr.view(np.int32))
-        if device.type == "cuda":
-            t = t.pin_memory().to(device, non_blocking=True)
-    return t
-
-
 def upload_packed(pw: np.ndarray, exc: np.ndarray, n: int,
                   device: torch.device) -> torch.Tensor:
     """Host packed words and exceptions -> device codes [n], each uploaded
@@ -113,46 +97,3 @@ def upload_packed(pw: np.ndarray, exc: np.ndarray, n: int,
     trace.count("upload.packed_slices", 1)
     return unpack_words(upload_int32(pw, device), upload_int32(exc, device),
                         n)
-
-
-def device_codes(codes: np.ndarray, device: torch.device) -> torch.Tensor:
-    """Host uint8 codes -> the same codes on `device`, a new tensor. On CUDA
-    the copy reads the host array where it lies (pageable) and is queued
-    without a stream sync. Traced: the span upload, and the counters
-    upload.bytes and upload.raw_slices."""
-    with trace.span("upload"):
-        trace.count("upload.bytes", codes.nbytes)
-        trace.count("upload.raw_slices", 1)
-        return torch.from_numpy(codes).to(device, non_blocking=True,
-                                          copy=True)
-
-
-def fetch_u16_async(x: torch.Tensor):
-    """Start moving a device count array (values in [0, 32767]) to the host.
-
-    Returns a callable that waits for this copy alone, not for device work
-    queued after it, and returns the counts as np.uint16. On CUDA the copy
-    goes as int16 into pinned memory without blocking the host."""
-    h = x.to(torch.int16)
-    if h.device.type != "cuda":
-        def wait() -> np.ndarray:
-            with trace.wait("fetch_u16"):
-                return h.numpy().view(np.uint16)
-
-        return wait
-    host = torch.empty(h.shape, dtype=torch.int16, pin_memory=True)
-    host.copy_(h, non_blocking=True)
-    done = torch.cuda.Event()
-    done.record()
-
-    def wait() -> np.ndarray:
-        with trace.wait("fetch_u16"):
-            done.synchronize()
-        return host.numpy().view(np.uint16)
-
-    return wait
-
-
-def fetch_u16(x: torch.Tensor) -> np.ndarray:
-    """Device count array (values in [0, 32767]) -> host np.uint16."""
-    return fetch_u16_async(x)()

@@ -2,7 +2,8 @@
 key rows, the union-merge of counted key sets, and the sort of counted rows.
 
 Port of ``fastk_tpu/ops/tables.py``. Keys are host (n, W) uint32 word rows
-(ops/kmers.py packing); on the device they become W int64 word tensors.
+(ops/kmers.py packing); on the device they become W int64 word tensors,
+crossing as their int32 bits (convert.py).
 """
 
 from __future__ import annotations
@@ -12,18 +13,11 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
+from fastk_tpu_torch.convert import fetch, words_from_numpy, words_to_numpy
 from fastk_tpu_torch.device import resolve_device
 from fastk_tpu_torch.ops.count import ONES, merge_unique_blocks, sort_keys
 
 DEVICE_MIN_ROWS = 1 << 20  # below this, numpy beats the transfers
-
-
-def _upload_u32(a: np.ndarray, device) -> torch.Tensor:
-    """Host uint32 [n] -> device int64 [n]: sent as int32 bits, widened on
-    the device."""
-    t = torch.from_numpy(np.ascontiguousarray(a, dtype=np.uint32)
-                         .view(np.int32)).to(device)
-    return t.to(torch.int64) & ONES
 
 
 def pad_counted(words: np.ndarray, counts: np.ndarray, device):
@@ -38,11 +32,9 @@ def pad_counted(words: np.ndarray, counts: np.ndarray, device):
     not depend on the padding."""
     n = len(counts)
     pad = 1 if n == 0 else 0
-    wt = tuple(
-        torch.cat([_upload_u32(words[:, j], device),
-                   torch.full((pad,), ONES, dtype=torch.int64,
-                              device=device)])
-        for j in range(words.shape[1]))
+    wt = tuple(torch.cat([w, torch.full((pad,), ONES, dtype=torch.int64,
+                                        device=device)])
+               for w in words_from_numpy(words.T, device))
     ct = torch.cat([
         torch.from_numpy(np.asarray(counts).astype(np.int32)).to(device),
         torch.zeros(pad, dtype=torch.int32, device=device)])
@@ -84,10 +76,9 @@ def merge_counted(words_list: Sequence[np.ndarray],
         [np.minimum(c, 0x7FFFFFFF).astype(np.int32) for c in counts_list])
     merged = merge_unique_blocks(
         *pad_counted(np.concatenate(list(words_list)), counts, dev))
-    n = int(merged["nuniq"])
-    words = np.stack([w[:n].cpu().numpy().astype(np.uint32)
-                      for w in merged["seg_words"]], axis=1)
-    return words, merged["seg_counts"][:n].cpu().numpy().astype(np.int64)
+    n = int(fetch(merged["nuniq"], "merge_counted_nuniq"))
+    rec = words_to_numpy(merged["seg_words"] + (merged["seg_counts"],), n)
+    return np.ascontiguousarray(rec[:-1].T), rec[-1].astype(np.int64)
 
 
 def sort_counted(words: np.ndarray, counts: np.ndarray, device="cuda"
@@ -108,7 +99,7 @@ def sort_counted(words: np.ndarray, counts: np.ndarray, device="cuda"
         be = np.ascontiguousarray(words.astype(">u4")).view(f"S{4 * W}").ravel()
         order = np.argsort(be, kind="stable")
         return words[order], counts[order]
-    wt = tuple(_upload_u32(words[:, j], dev) for j in range(W))
+    wt = words_from_numpy(words.T, dev)
     idx = torch.arange(n, dtype=torch.int64, device=dev)
     _, (order,) = sort_keys(wt, (idx,))
     order = order.cpu().numpy()

@@ -15,11 +15,14 @@ from typing import Optional
 import numpy as np
 import torch
 
-from fastk_tpu_torch.convert import words_to_numpy
+from fastk_tpu_torch.convert import (
+    device_codes,
+    words_from_numpy,
+    words_to_numpy,
+)
 from fastk_tpu_torch.formats.hist import HIST_HIGH
 from fastk_tpu_torch.ops.count import fold_invalid
-from fastk_tpu_torch.ops.kmers import canonical_kmers, nwords, pad_needed
-from fastk_tpu_torch.ops.pack import device_codes
+from fastk_tpu_torch.ops.kmers import canonical_kmers, pad_needed
 from fastk_tpu_torch.parallel.dist import (
     Mesh,
     prefix_histogram,
@@ -34,8 +37,7 @@ from fastk_tpu_torch.parallel.multihost import (
 
 
 def _spl(splitters: np.ndarray, mesh: Mesh) -> torch.Tensor:
-    return torch.from_numpy(np.asarray(splitters, np.uint32).astype(np.int64)
-                            ).to(mesh.device)
+    return words_from_numpy((splitters,), mesh.device)[0]
 
 
 def _sample_codes(codes: np.ndarray, k: int, sample: int):
@@ -169,9 +171,7 @@ def relative_profiles_sharded(
     cuts = [0] + [int(np.searchsorted(words[:, 0], s, side="left"))
                   for s in splitters] + [n]
     lo, hi = cuts[pid], cuts[pid + 1]
-    t_words = tuple(torch.from_numpy(words[lo:hi, j].astype(np.int64)
-                                     ).to(mesh.device)
-                    for j in range(nwords(k)))
+    t_words = words_from_numpy(words[lo:hi].T, mesh.device)
     t_counts = torch.from_numpy(np.minimum(table.counts[lo:hi], HIST_HIGH)
                                 .astype(np.int32)).to(mesh.device)
     spl = _spl(splitters, mesh)
@@ -312,7 +312,6 @@ def sharded_count(
     failing. rebalance_state (a dict) carries retrained splitters to later
     batches."""
     D = mesh.size
-    W = nwords(k)
     shard_size = (len(codes) + D - 1) // D
     step = 1 << 14
     shard_size = ((shard_size + step - 1) // step) * step
@@ -357,9 +356,9 @@ def sharded_count(
     # this chip's segments, gathered in rank (= key) order
     ns = int(out["nseg"])
     v = out["seg_valid"][:ns]
-    mine_w = (np.stack(words_to_numpy(w[:ns][v] for w in out["seg_words"]),
-                       axis=1) if ns else np.zeros((0, W), np.uint32))
-    mine_c = out["seg_counts"][:ns][v].cpu().numpy().astype(np.int64)
+    rec = words_to_numpy(w[:ns][v]
+                         for w in out["seg_words"] + (out["seg_counts"],))
+    mine_w, mine_c = np.ascontiguousarray(rec[:-1].T), rec[-1].astype(np.int64)
     words = np.concatenate(_allgather_ragged(mine_w))
     counts = np.concatenate(_allgather_ragged(mine_c))
     hist_arr = out["hist"].cpu().numpy()

@@ -50,14 +50,13 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from fastk_tpu_torch.convert import words_to_numpy
+from fastk_tpu_torch.convert import device_codes, fetch_u16, words_to_numpy
 from fastk_tpu_torch.formats.hist import HIST_HIGH, Histogram
 from fastk_tpu_torch.formats.ktab import KmerTable, KtabWriter
 from fastk_tpu_torch.formats.prof import ProfWriter, encode_profiles_bulk
 from fastk_tpu_torch.io.reader import batched_reads
 from fastk_tpu_torch.ops.count import merge_unique_blocks
 from fastk_tpu_torch.ops.kmers import nwords, pad_needed
-from fastk_tpu_torch.ops.pack import device_codes, fetch_u16
 from fastk_tpu_torch.ops.tables import pad_counted
 from fastk_tpu_torch.parallel.dist import (
     Mesh,
@@ -366,9 +365,9 @@ def count_files_mesh(
         nonlocal nvalid_local, edges
         ns = int(out["nseg"])
         v = out["seg_valid"][:ns]
-        cw = (np.stack(words_to_numpy(w[:ns][v] for w in out["seg_words"]),
-                       axis=1) if ns else np.zeros((0, W), np.uint32))
-        cc = out["seg_counts"][:ns][v].cpu().numpy().astype(np.uint32)
+        rec = words_to_numpy(w[:ns][v]
+                             for w in out["seg_words"] + (out["seg_counts"],))
+        cw, cc = np.ascontiguousarray(rec[:-1].T), rec[-1].copy()
         nvalid_local += int(cc.astype(np.int64).sum())
         if edges is None:
             if len(cw) == 0 and parts_per_chip > 1:

@@ -32,7 +32,7 @@ import torch
 import torch.distributed as dist
 
 from fastk_tpu_torch.ops.kmers import pad_needed
-from fastk_tpu_torch.ops.pack import device_codes
+from fastk_tpu_torch.convert import device_codes
 
 _groups_of: dict = {}  # the world's process group -> (world, host group)
 

@@ -55,7 +55,14 @@ from fastk_tpu_torch.formats.hist import HIST_HIGH, Histogram
 from fastk_tpu_torch.formats.ktab import KmerTable, write_ktab
 from fastk_tpu_torch.formats.prof import ProfWriter, encode_profiles_bulk
 from fastk_tpu_torch.io.reader import ReadBatch, batched_reads
-from fastk_tpu_torch.convert import words_to_numpy
+from fastk_tpu_torch.convert import (
+    device_codes,
+    fetch,
+    fetch_async,
+    fetch_u16,
+    words_from_numpy,
+    words_to_numpy,
+)
 from fastk_tpu_torch.device import resolve_device
 from fastk_tpu_torch.ops.count import (
     ONES,
@@ -74,13 +81,7 @@ from fastk_tpu_torch.ops.kmers import (
     pad_needed,
     words_to_packed,
 )
-from fastk_tpu_torch.ops.pack import (
-    device_codes,
-    fetch_u16,
-    fetch_u16_async,
-    pack_stream_words,
-    upload_packed,
-)
+from fastk_tpu_torch.ops.pack import pack_stream_words, upload_packed
 
 DEFAULT_BATCH_BASES = 64 << 20  # bases per device batch
 _MIN_SIZE = 1 << 15
@@ -158,32 +159,10 @@ def _histogram(k: int, hist_bins: torch.Tensor, nvalid: int) -> Histogram:
     nvalid - sum(c * hist[c]). Traced: part of the span merge, and the wait
     hist_bins."""
     with trace.span("merge"):
-        with trace.wait("hist_bins"):
-            bins = hist_bins.cpu().numpy().astype(np.int64)
+        bins = fetch(hist_bins, "hist_bins").astype(np.int64)
         overflow = nvalid - int(
             (bins[1:] * np.arange(1, HIST_HIGH + 1, dtype=np.int64)).sum())
         return Histogram.from_bins(k, bins, overflow)
-
-
-def _later(t: torch.Tensor):
-    """Start fetching a device scalar; the returned callable waits for the
-    fetch alone, not for device work queued after it. Traced: the wait
-    later."""
-    if t.device.type != "cuda":
-        host = done = None
-    else:
-        host = t.to("cpu", non_blocking=True)
-        done = torch.cuda.Event()
-        done.record()
-
-    def wait() -> int:
-        with trace.wait("later"):
-            if done is None:
-                return int(t)
-            done.synchronize()
-        return int(host)
-
-    return wait
 
 
 def _profiles_from_meta(boff: np.ndarray, rlen: np.ndarray,
@@ -208,16 +187,13 @@ def _device_table(table: KmerTable, k: int, dev: torch.device):
     """Host table -> device (words tuple of int64 [n], counts int32 [n]
     clipped at 32767). The join needs no padding: torch has no static
     shapes to keep. Traced: the span relative_table.upload, and the wait
-    table_upload (each copy from pageable memory blocks the host)."""
-    def up(a: np.ndarray) -> torch.Tensor:
-        with trace.wait("table_upload"):
-            return torch.from_numpy(a).to(dev)
-
+    table_upload (the counts' copy from pageable memory blocks the host)."""
     with trace.span("relative_table.upload"):
         words = packed_to_words(table.packed, k)
         counts = np.minimum(table.counts, HIST_HIGH).astype(np.int32)
-        return (tuple(up(words[:, j].astype(np.int64))
-                      for j in range(words.shape[1])), up(counts))
+        t_words = words_from_numpy(words.T, dev)
+        with trace.wait("table_upload"):
+            return t_words, torch.from_numpy(counts).to(dev)
 
 
 def _table_entries(k: int, table_min: int, words, counts: torch.Tensor,
@@ -232,11 +208,10 @@ def _table_entries(k: int, table_min: int, words, counts: torch.Tensor,
         words, counts = tuple(w[:n] for w in words), counts[:n]
         if table_min > 1:
             kept = compact_table_min(words, counts, table_min)
-            with trace.wait("table_nkeep"):
-                n = int(kept["nkeep"])
+            n = int(fetch(kept["nkeep"], "table_nkeep"))
             words, counts = kept["words"], kept["counts"]
         with trace.wait("table_words"):
-            u_words = np.stack(words_to_numpy(w[:n] for w in words), axis=1)
+            u_words = words_to_numpy(words, n).T
         return (words_to_packed(u_words, k),
                 fetch_u16(torch.clamp(counts[:n], max=HIST_HIGH)))
 
@@ -349,7 +324,7 @@ def count_files(
 
     def _finalize(res, nuniq, nvalid, size):
         nonlocal nvalid_total
-        nv, nu = nvalid(), nuniq()
+        nv, nu = int(nvalid()), int(nuniq())
         trace.count("dedup.positions", nv)
         trace.count("dedup.uniques", nu)
         nvalid_total += nv
@@ -387,7 +362,8 @@ def count_files(
                     res = unique_batch(codes, k, size)
                 del codes
                 queued += 1
-                fetches = (_later(res["nuniq"]), _later(res["nvalid"]))
+                fetches = (fetch_async(res["nuniq"], "later"),
+                           fetch_async(res["nvalid"], "later"))
                 if pending is not None:
                     _finalize(*pending)
                 pending = (res, *fetches, size)
@@ -437,8 +413,7 @@ def count_files(
 
     table = table_entries = None
     if table_min is not None or profiles:
-        with trace.wait("merge_nuniq"):
-            nuniq = int(merged["nuniq"])
+        nuniq = int(fetch(merged["nuniq"], "merge_nuniq"))
     if table_min is not None:
         table, table_entries = _table(
             k, table_min, merged["seg_words"], merged["seg_counts"],
@@ -481,24 +456,23 @@ def _count_single_fused(batch: ReadBatch, k: int, table_min: Optional[int],
     size = _round_size(len(batch.codes), k)
     res = count_batch(device_codes(_pad_codes(batch, k, size), dev), k, size,
                       True, True)
-    pos_fetch = fetch_u16_async(res["pos_counts"])
+    pos_fetch = fetch_async(res["pos_counts"].to(torch.int16), "fetch_u16")
     if verbose:
         print(f"  batch 1 (fused): {batch.nreads} reads, "
               f"{batch.totlen} bases", flush=True)
-    with trace.wait("fused_nvalid"):
-        nvalid = int(res["nvalid"])
+    nvalid = int(fetch(res["nvalid"], "fused_nvalid"))
     hist = _histogram(k, res["hist"], nvalid)
 
     table = table_entries = None
     if table_min is not None:
         # valid segments are the slots before the one trailing invalid one
-        with trace.wait("fused_nseg"):
-            nuniq = int(res["nseg"]) - (1 if nvalid < size else 0)
+        nuniq = (int(fetch(res["nseg"], "fused_nseg"))
+                 - (1 if nvalid < size else 0))
         table, table_entries = _table(k, table_min, res["seg_words"],
                                       res["seg_counts"], nuniq, out_base,
                                       out_nparts)
     sink = _ProfSink(k, out_base, out_nparts, batch.nreads)
-    sink.add_batch(batch.boff, batch.rlen, pos_fetch())
+    sink.add_batch(batch.boff, batch.rlen, pos_fetch().view(np.uint16))
     sink.close()
     rlen = np.asarray(batch.rlen)
     return CountOutput(k, hist, table, sink.profs, batch.nreads,
@@ -516,14 +490,14 @@ def _drain(metas, joins, sink: _ProfSink) -> None:
     def _emit(meta, fetches):
         boff, rlen, clen = meta
         pos_counts = np.zeros(clen, dtype=np.uint16)
-        for off, size, fetch in fetches:
+        for off, size, got in fetches:
             take = min(size, clen - off)
             if take > 0:
-                pos_counts[off: off + take] = fetch()[:take]
+                pos_counts[off: off + take] = got()[:take].view(np.uint16)
         sink.add_batch(boff, rlen, pos_counts)
 
     for meta, slices in zip(metas, joins):
-        fetches = [(off, size, fetch_u16_async(pc))
+        fetches = [(off, size, fetch_async(pc.to(torch.int16), "fetch_u16"))
                    for off, size, pc in slices]
         if pending is not None:
             _emit(*pending)

@@ -44,6 +44,14 @@ from fastk_tpu_torch.formats.hist import HIST_HIGH, Histogram
 from fastk_tpu_torch.formats.ktab import KmerTable, KtabWriter
 from fastk_tpu_torch.formats.prof import ProfWriter, encode_profiles_bulk
 from fastk_tpu_torch.io.reader import batched_reads
+from fastk_tpu_torch.convert import (
+    device_codes,
+    fence,
+    fetch,
+    fetch_async,
+    fetch_u16,
+    words_to_numpy_async,
+)
 from fastk_tpu_torch.device import resolve_device
 from fastk_tpu_torch.ops.count import (
     merge_unique_blocks,
@@ -51,13 +59,11 @@ from fastk_tpu_torch.ops.count import (
     unique_batch_inst,
 )
 from fastk_tpu_torch.ops.kmers import nwords
-from fastk_tpu_torch.ops.pack import device_codes, fetch_u16
 from fastk_tpu_torch.ops.tables import pad_counted
 from fastk_tpu_torch.pipeline.count import (
     MAX_DEVICE_POSITIONS,
     CountOutput,
     _code_slices,
-    _later,
     _profiles_from_meta,
     _table_entries,
 )
@@ -239,39 +245,25 @@ def _start_fetch(res: dict, profiles: bool, side):
     gives (nuniq, nvalid, words uint32 (nuniq, W), counts uint32 [nuniq],
     positions uint32 [nvalid] or None).
 
-    The counts come first (_later); the arrays then copy on the side stream
-    `side`, which waits for an event recorded here, so the copy overlaps
-    the next slice's work. Key words cross as their int32 bits."""
-    nuniq, nvalid = _later(res["nuniq"]), _later(res["nvalid"])
-    ready = None
-    if side is not None:
-        ready = torch.cuda.Event()
-        ready.record()
+    The counts come first (the wait later); the records (the words and
+    counts) and the positions then copy on the side stream `side`, fenced
+    after the slice's work, so the copy overlaps the next slice's work.
+    Traced: the waits later, slice_records and slice_positions."""
+    nuniq = fetch_async(res["nuniq"], "later")
+    nvalid = fetch_async(res["nvalid"], "later")
+    after_slice = fence(side)
 
     def wait():
-        nu, nval = nuniq(), nvalid()
-        arrays = [(w, nu) for w in res["seg_words"]]
-        arrays.append((res["seg_counts"], nu))
-        if profiles:
-            arrays.append((res["s_pos"], nval))
-        if side is None:
-            host = [t[:n].to(torch.int32).numpy() for t, n in arrays]
-        else:
-            side.wait_event(ready)
-            with torch.cuda.stream(side):
-                host = []
-                for t, n in arrays:
-                    h = torch.empty(n, dtype=torch.int32, pin_memory=True)
-                    h.copy_(t[:n].to(torch.int32), non_blocking=True)
-                    host.append(h)
-            side.synchronize()
-            host = [h.numpy() for h in host]
-        host = [a.view(np.uint32) for a in host]
-        W = len(res["seg_words"])
-        words = (np.stack(host[:W], axis=1) if nu
-                 else np.zeros((0, W), np.uint32))
-        return (nu, nval, words, host[W].copy(),
-                host[W + 1].copy() if profiles else None)
+        nu, nval = int(nuniq()), int(nvalid())
+        after_slice()
+        rec = words_to_numpy_async(res["seg_words"] + (res["seg_counts"],),
+                                   nu, "slice_records", side)
+        pos = (words_to_numpy_async((res["s_pos"],), nval,
+                                    "slice_positions", side)
+               if profiles else None)
+        rec = rec()
+        return (nu, nval, np.ascontiguousarray(rec[:-1].T), rec[-1].copy(),
+                pos()[0].copy() if profiles else None)
 
     return wait
 
@@ -365,10 +357,10 @@ def count_files_ooc(
 
     try:
         # ---- phase 1: per-slice device dedup, spilled by key range --------
-        def _spill_one(fetch, label, batch_complete: bool):
+        def _spill_one(slice_fetch, label, batch_complete: bool):
             nonlocal nvalid_total, edges, parts, spill, ispill, imeta
             bidx, nreads, off = label
-            nu, nval, words, counts, s_pos = fetch()
+            nu, nval, words, counts, s_pos = slice_fetch()
             nvalid_total += nval
             if parts is None:
                 # measured plan: est_bases x (first-slice uniques / valid
@@ -452,7 +444,7 @@ def count_files_ooc(
                 else:
                     res = unique_batch(codes, k, size)
                 del codes
-                fetch = _start_fetch(res, profiles, side)
+                slice_fetch = _start_fetch(res, profiles, side)
                 del res
                 label = (len(metas) - 1, metas[-1].nreads, off)
                 if pending is not None:
@@ -460,8 +452,8 @@ def count_files_ooc(
                     # just queued belongs to a later batch
                     _spill_one(*pending,
                                batch_complete=pending[1][0] != label[0])
-                pending = (fetch, label)
-                del fetch
+                pending = (slice_fetch, label)
+                del slice_fetch
             del batch  # codes must not outlive phase 1
         if pending is not None:
             _spill_one(*pending, batch_complete=True)
@@ -506,11 +498,11 @@ def count_files_ooc(
             m_words, m_counts = pad_counted(words, counts, dev)
             merged = merge_unique_blocks(m_words, m_counts, want_back=nq > 0)
             del m_words, m_counts
-            hist_arr[:] += merged["hist"].cpu().numpy()
+            hist_arr[:] += fetch(merged["hist"], "part_hist")
             if table_min is not None:
                 packed, u_counts = _table_entries(
                     k, table_min, merged["seg_words"], merged["seg_counts"],
-                    int(merged["nuniq"]))
+                    int(fetch(merged["nuniq"], "part_nuniq")))
                 table_entries += len(u_counts)
                 if ktw is not None:
                     ktw.add(packed, u_counts)

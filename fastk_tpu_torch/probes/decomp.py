@@ -50,7 +50,8 @@ from fastk_tpu_torch.ops.count import (
     sort_keys,
 )
 from fastk_tpu_torch.ops.kmers import canonical_kmers
-from fastk_tpu_torch.ops.pack import unpack_words, upload_int32
+from fastk_tpu_torch.convert import upload_int32
+from fastk_tpu_torch.ops.pack import unpack_words
 from fastk_tpu_torch.probes.common import (
     K,
     bench_batch,

@@ -62,11 +62,11 @@ import torch
 import torch.distributed as dist
 
 from fastk_tpu_torch import trace
+from fastk_tpu_torch.convert import device_codes, fetch
 from fastk_tpu_torch.formats.hist import write_histogram
 from fastk_tpu_torch.formats.ktab import read_ktab
 from fastk_tpu_torch.io.reader import batched_reads
 from fastk_tpu_torch.ops.count import unique_batch
-from fastk_tpu_torch.ops.pack import device_codes
 from fastk_tpu_torch.ops.kmers import pad_needed
 from fastk_tpu_torch.parallel.multihost import init_from_env, rank_device
 from fastk_tpu_torch.pipeline.count import (
@@ -325,12 +325,10 @@ def _measure_dedup(inputs, k, batch_bases, hc, bc, dev,
             return None
         _off, size, buf = next(_code_slices(first[0].codes, k, max_size))
         res = unique_batch(device_codes(buf, dev), k, size)
-        with trace.wait("plan_nvalid"):
-            nval = int(res["nvalid"])
+        nval = int(fetch(res["nvalid"], "plan_nvalid"))
         if nval <= 0:
             return None
-        with trace.wait("plan_nuniq"):
-            return int(res["nuniq"]) / nval
+        return int(fetch(res["nuniq"], "plan_nuniq")) / nval
 
 
 def main(argv=None, device="cuda") -> int:

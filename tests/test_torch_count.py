@@ -11,7 +11,7 @@ import jax.numpy as jnp
 import fastk_tpu.ops.count as jcount
 from fastk_tpu.ops.kmers import canonical_kmers as jax_canonical
 from fastk_tpu_torch.convert import (
-    codes_from_numpy,
+    device_codes,
     words_from_numpy,
     words_to_numpy,
 )
@@ -46,7 +46,7 @@ def test_sort_keys_matches_lax_sort(k):
     words, invalid = jax_canonical(jnp.asarray(c), k, SIZE)
     folded = jcount.fold_invalid(words, invalid)
     want = jax.lax.sort(folded, num_keys=len(folded))
-    tw, tinv = canonical_kmers(codes_from_numpy(c, "cpu"), k, SIZE)
+    tw, tinv = canonical_kmers(device_codes(c, "cpu"), k, SIZE)
     got, _ = tcount.sort_keys(tcount.fold_invalid(tw, tinv))
     for g, w in zip(words_to_numpy(got), want):
         assert np.array_equal(g, np.asarray(w))
@@ -58,7 +58,7 @@ def test_sort_keys_matches_lax_sort(k):
 def test_hist_batch_matches_jax(k):
     c = _codes(k, 2)
     want = jcount.hist_batch(jnp.asarray(c), k, SIZE)
-    got = tcount.hist_batch(codes_from_numpy(c, "cpu"), k, SIZE)
+    got = tcount.hist_batch(device_codes(c, "cpu"), k, SIZE)
     assert np.array_equal(got["hist"].numpy(),
                           np.asarray(want["hist"]).astype(np.int64))
     assert got["nvalid"] == int(want["nvalid"])
@@ -80,7 +80,7 @@ def test_unique_batch_and_merge_match_jax(k):
     for seed in (3, 4):
         c = _codes(k, seed)
         want = jcount.unique_batch(jnp.asarray(c), k, SIZE)
-        got = tcount.unique_batch(codes_from_numpy(c, "cpu"), k, SIZE)
+        got = tcount.unique_batch(device_codes(c, "cpu"), k, SIZE)
         _unique_matches(got, want)
         blocks.append(want)
     # merge the JAX blocks in both packages

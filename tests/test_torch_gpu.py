@@ -31,7 +31,15 @@ import pytest
 import torch
 
 import chip_smoke
-from fastk_tpu_torch.convert import codes_from_numpy, words_to_numpy
+from fastk_tpu_torch.convert import (
+    device_codes,
+    fence,
+    fetch,
+    fetch_u16,
+    words_from_numpy,
+    words_to_numpy,
+    words_to_numpy_async,
+)
 from fastk_tpu_torch.ops import count, histker
 from fastk_tpu_torch.ops import probes as probe_ops
 from fastk_tpu_torch.ops.kmers import pad_needed
@@ -122,15 +130,15 @@ def test_device_path_matches_cpu(cuda_device, k):
     size = 1 << 18
     c = _codes(k, size, k)
     cpu, gpu = torch.device("cpu"), cuda_device
-    h_cpu = count.hist_batch(codes_from_numpy(c, cpu), k, size)
+    h_cpu = count.hist_batch(device_codes(c, cpu), k, size)
     before = histker.run_hist.launches
-    h_gpu = count.hist_batch(codes_from_numpy(c, gpu), k, size)
+    h_gpu = count.hist_batch(device_codes(c, gpu), k, size)
     assert histker.run_hist.launches == before + 1
     assert torch.equal(h_gpu["hist"].cpu(), h_cpu["hist"])
     assert h_gpu["nvalid"] == h_cpu["nvalid"]
 
-    u_cpu = count.unique_batch(codes_from_numpy(c, cpu), k, size)
-    u_gpu = count.unique_batch(codes_from_numpy(c, gpu), k, size)
+    u_cpu = count.unique_batch(device_codes(c, cpu), k, size)
+    u_gpu = count.unique_batch(device_codes(c, gpu), k, size)
     for key in ("nseg", "nuniq", "nvalid"):
         assert int(u_gpu[key]) == int(u_cpu[key])
     assert torch.equal(u_gpu["seg_counts"].cpu(), u_cpu["seg_counts"])
@@ -144,6 +152,37 @@ def test_device_path_matches_cpu(cuda_device, k):
     assert torch.equal(m_gpu["hist"].cpu(), m_cpu["hist"])
 
 
+def test_convert_copies_on_card(cuda_device):
+    """convert.py on CUDA: key words up through one pinned int32 copy and
+    back through one narrowed copy, all-ones slots and bit 31 kept; a
+    fenced side-stream fetch sees the work queued before the fence; scalar
+    and count fetches."""
+    rng = np.random.default_rng(3)
+    host = rng.integers(0, 1 << 32, (3, 1 << 20),
+                        dtype=np.uint64).astype(np.uint32)
+    host[:, 7] = 0xFFFFFFFF
+    host[:, 8] = 0x80000000
+    words = words_from_numpy(host, cuda_device)
+    assert all(w.device.type == "cuda" and w.dtype == torch.int64
+               for w in words)
+    assert int(words[0][7]) == 0xFFFFFFFF
+    assert np.array_equal(words_to_numpy(words), host)
+    assert np.array_equal(words_to_numpy(words, 100), host[:, :100])
+    assert words_to_numpy(words, 0).shape == (3, 0)
+    side = torch.cuda.Stream()
+    x = torch.zeros(1 << 24, dtype=torch.int64, device=cuda_device)
+    x += 5
+    after = fence(side)
+    x += 1  # queued after the fence: the side copy need not see it
+    after()
+    got = words_to_numpy_async((x,), 1 << 24, "t", side)()
+    assert set(np.unique(got[0]).tolist()) <= {5, 6}
+    torch.cuda.synchronize()
+    assert int(fetch(torch.tensor(7, device=cuda_device), "t")) == 7
+    c = torch.full((10,), 32767, dtype=torch.int32, device=cuda_device)
+    assert fetch_u16(c).tolist() == [32767] * 10
+
+
 @pytest.mark.parametrize("k", [17, 40])
 def test_table_and_profile_ops_match_cpu(cuda_device, k):
     """count_batch, compact_table_min and both joins on the card equal the
@@ -153,14 +192,14 @@ def test_table_and_profile_ops_match_cpu(cuda_device, k):
     res = {}
     for dev in (torch.device("cpu"), cuda_device):
         before = histker.run_hist.launches
-        cb = count.count_batch(codes_from_numpy(c, dev), k, size, True, True)
+        cb = count.count_batch(device_codes(c, dev), k, size, True, True)
         if dev.type == "cuda":
             assert histker.run_hist.launches == before + 1
         kept = count.compact_table_min(cb["seg_words"], cb["seg_counts"], 3)
         n = int(kept["nkeep"])
         t_words = tuple(w[:n] for w in kept["words"])
         t_counts = kept["counts"][:n]
-        q = codes_from_numpy(c[::-1].copy(), dev)  # the reverse strand
+        q = device_codes(c[::-1].copy(), dev)  # the reverse strand
         inst = count.unique_batch_inst(q, k, size)
         res[dev.type] = dict(
             cb=cb, n=n, t_words=words_to_numpy(t_words),
@@ -196,7 +235,7 @@ def test_merge_want_back_matches_cpu(cuda_device, k):
     for dev in (torch.device("cpu"), cuda_device):
         ws, cs = [], []
         for seed in (1, 1, 2):
-            u = count.unique_batch(codes_from_numpy(_codes(k, size, seed),
+            u = count.unique_batch(device_codes(_codes(k, size, seed),
                                                     dev), k, size)
             ws.append(u["seg_words"])
             cs.append(u["seg_counts"].clone())
@@ -339,7 +378,7 @@ def test_sharded_count_world_one_nccl(cuda_device, tmp_path):
         assert histker.run_hist.launches == before + 1
     finally:
         dist.destroy_process_group()
-    cb = count.count_batch(codes_from_numpy(c, cuda_device), k, size, True,
+    cb = count.count_batch(device_codes(c, cuda_device), k, size, True,
                            True)
     ns = int(cb["nseg"])
     v = cb["seg_valid"][:ns]

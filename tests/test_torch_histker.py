@@ -19,7 +19,7 @@ import fastk_tpu.ops.histker as jhk
 from fastk_tpu.ops.count import fold_invalid as jax_fold
 from fastk_tpu.ops.count import hist_batch as jax_hist_batch
 from fastk_tpu.ops.kmers import canonical_kmers as jax_canonical
-from fastk_tpu_torch.convert import codes_from_numpy, words_from_numpy
+from fastk_tpu_torch.convert import device_codes, words_from_numpy
 from fastk_tpu_torch.ops import histker
 from fastk_tpu_torch.ops.count import hist_batch
 from fastk_tpu_torch.ops.kmers import pad_needed
@@ -77,7 +77,7 @@ def test_matches_pallas_kernel_interpreted(monkeypatch):
     c[S - 40:] = 0
     c[S:] = 4
     want = jhk.hist_batch_fast(jnp.asarray(c), K, S)
-    got = hist_batch(codes_from_numpy(c, "cpu"), K, S)
+    got = hist_batch(device_codes(c, "cpu"), K, S)
     assert np.array_equal(got["hist"].numpy()[1:], want["hist"][1:])
     assert got["hist"][0] == 0
     assert got["nvalid"] == want["nvalid"]
@@ -133,7 +133,7 @@ def test_edge_cases_match_jax_hist_batch(name):
     assert np.array_equal(hist.numpy(), want_hist)
 
     # and the port's whole device path
-    got = hist_batch(codes_from_numpy(c, "cpu"), K, S)
+    got = hist_batch(device_codes(c, "cpu"), K, S)
     assert got["nvalid"] == want_nvalid
     assert np.array_equal(got["hist"].numpy(), want_hist)
     if name == "one_run_clipped":

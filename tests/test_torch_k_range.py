@@ -12,7 +12,7 @@ import torch
 
 from fastk_tpu.ops.kmers import canonical_kmers as jax_kmers
 from fastk_tpu.pipeline.count import count_reads as jax_count_reads
-from fastk_tpu_torch.convert import codes_from_numpy, words_to_numpy
+from fastk_tpu_torch.convert import device_codes, words_to_numpy
 from fastk_tpu_torch.formats.hist import HIST_HIGH
 from fastk_tpu_torch.ops.kmers import canonical_kmers, pad_needed
 from fastk_tpu_torch.pipeline.count import count_reads
@@ -67,7 +67,7 @@ def test_canonical_kmers_match_jax(k):
     codes = rng.integers(0, 4, size + pad_needed(k)).astype(np.uint8)
     codes[rng.integers(0, size, 6)] = 4
     codes[300: 300 + k] = codes[1000: 1000 + k]  # a repeat
-    words, invalid = canonical_kmers(codes_from_numpy(codes, torch.device(
+    words, invalid = canonical_kmers(device_codes(codes, torch.device(
         "cpu")), k, size)
     jw, jinv = jax_kmers(codes, k, size)
     assert np.array_equal(invalid.numpy(), np.asarray(jinv) != 0)

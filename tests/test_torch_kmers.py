@@ -7,7 +7,7 @@ import torch
 import jax.numpy as jnp
 
 from fastk_tpu.ops.kmers import canonical_kmers as jax_canonical
-from fastk_tpu_torch.convert import codes_from_numpy, words_to_numpy
+from fastk_tpu_torch.convert import device_codes, words_to_numpy
 from fastk_tpu_torch.ops.kmers import canonical_kmers, nwords, pad_needed
 
 SIZE = 2048
@@ -21,7 +21,7 @@ def test_canonical_kmers_match_jax(k):
     c[SIZE // 2: SIZE // 2 + 2 * k] = 0  # A^n: fwd and rc windows tie-break
     c[SIZE - 3:] = 4
     want_words, want_inv = jax_canonical(jnp.asarray(c), k, SIZE)
-    words, inv = canonical_kmers(codes_from_numpy(c, "cpu"), k, SIZE)
+    words, inv = canonical_kmers(device_codes(c, "cpu"), k, SIZE)
     assert len(words) == nwords(k)
     assert inv.dtype == torch.bool
     assert np.array_equal(inv.numpy(), np.asarray(want_inv) != 0)

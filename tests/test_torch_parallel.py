@@ -14,7 +14,7 @@ import torch
 from fastk_tpu.parallel import dist as jdist
 from fastk_tpu.parallel import host as jhost
 from fastk_tpu.parallel.multihost import shard_files as jax_shard_files
-from fastk_tpu_torch.convert import codes_from_numpy, words_to_numpy
+from fastk_tpu_torch.convert import device_codes, words_to_numpy
 from fastk_tpu_torch.ops.count import count_batch, positions_inverse
 from fastk_tpu_torch.ops.kmers import canonical_kmers, nwords, pad_needed
 from fastk_tpu_torch.parallel import dist as tdist
@@ -102,7 +102,7 @@ def test_sharded_count_equals_count_batch(port_worlds, k):
     size = 1 << 15
     buf = np.full(size + pad_needed(k), 4, np.uint8)
     buf[: len(CODES)] = CODES
-    res = count_batch(codes_from_numpy(buf, CPU), k, size, True, True)
+    res = count_batch(device_codes(buf, CPU), k, size, True, True)
     ns = int(res["nseg"])
     v = res["seg_valid"][:ns]
     words = np.stack(words_to_numpy(w[:ns][v] for w in res["seg_words"]),
@@ -148,7 +148,7 @@ def test_prefix_histogram_matches_jax(k, bits):
     size = 1 << 15
     buf = np.full(size + pad_needed(k), 4, np.uint8)
     buf[: len(CODES)] = CODES
-    got = tdist.prefix_histogram(codes_from_numpy(buf, CPU), k, size, bits)
+    got = tdist.prefix_histogram(device_codes(buf, CPU), k, size, bits)
     want = np.asarray(jdist.prefix_histogram(buf, k, size, bits))
     assert np.array_equal(got.numpy(), want)
 
@@ -196,7 +196,7 @@ def test_route_chip_matches_jax_scatter(k, slack):
     want = jdist._route_chip(jw, jinv, jnp.arange(size, dtype=jnp.uint32),
                              jnp.asarray(spl), D, cap, size, impl="scatter",
                              carry_pos=True)
-    words, invalid = canonical_kmers(codes_from_numpy(buf, CPU), k, size)
+    words, invalid = canonical_kmers(device_codes(buf, CPU), k, size)
     for impl in ("scatter", "merge"):
         got = tdist._route_chip(
             words, invalid, torch.arange(size, dtype=torch.int32),
@@ -220,13 +220,13 @@ def test_slot_counts_and_received_counts_invert_the_route():
     size = D * shard
     buf = np.full(size + pad_needed(k), 4, np.uint8)
     buf[: len(CODES)] = CODES
-    whole = count_batch(codes_from_numpy(buf, CPU), k, size, True, True)
+    whole = count_batch(device_codes(buf, CPU), k, size, True, True)
     spl = torch.from_numpy(
         thost.train_splitters(CODES, k, _mesh_of(D)).astype(np.int64))
     cap = int(shard // D * 1.8)
     sends, routes = [], []
     for d in range(D):
-        row = codes_from_numpy(buf[d * shard: (d + 1) * shard + pad_needed(k)],
+        row = device_codes(buf[d * shard: (d + 1) * shard + pad_needed(k)],
                                CPU)
         words, invalid = canonical_kmers(row, k, shard)
         r = tdist._route_chip(words, invalid,

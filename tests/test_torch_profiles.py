@@ -18,7 +18,7 @@ from fastk_tpu.formats import prof as P
 from fastk_tpu.formats.hist import write_histogram
 from fastk_tpu.ops.kmers import canonical_kmers as jax_canonical
 from fastk_tpu_torch.convert import (
-    codes_from_numpy,
+    device_codes,
     words_from_numpy,
     words_to_numpy,
 )
@@ -64,7 +64,7 @@ def test_scans_match_jax(size):
 
 def _count_batch_matches(c: np.ndarray, k: int, size: int):
     want = jcount.count_batch(jnp.asarray(c), k, size, True, True)
-    got = tcount.count_batch(codes_from_numpy(c, "cpu"), k, size, True, True)
+    got = tcount.count_batch(device_codes(c, "cpu"), k, size, True, True)
     for key in ("nseg", "nvalid", "overflow"):
         assert int(got[key]) == int(want[key]), key
     for key in ("seg_counts", "seg_valid"):
@@ -107,7 +107,7 @@ def _sorted_pairs(s_words, s_pos) -> np.ndarray:
 def test_unique_batch_inst_matches_jax(k):
     c = _codes(k, 7)
     want = jcount.unique_batch_inst(jnp.asarray(c), k, SIZE)
-    got = tcount.unique_batch_inst(codes_from_numpy(c, "cpu"), k, SIZE)
+    got = tcount.unique_batch_inst(device_codes(c, "cpu"), k, SIZE)
     for key in ("nseg", "nuniq", "nvalid"):
         assert int(got[key]) == int(want[key]), key
     assert np.array_equal(got["seg_counts"].numpy(),
@@ -149,7 +149,7 @@ def test_profile_joins_match_jax(k):
     jt = (tuple(jnp.asarray(w) for w in words), jnp.asarray(counts))
     tt = (words_from_numpy(words, "cpu"), torch.from_numpy(counts))
     want = np.asarray(jcount.profile_join(*jt, jnp.asarray(q), k, SIZE))
-    got = tcount.profile_join(*tt, codes_from_numpy(q, "cpu"), k, SIZE)
+    got = tcount.profile_join(*tt, device_codes(q, "cpu"), k, SIZE)
     assert got.dtype == torch.int16
     assert np.array_equal(_u16(got), want)
     assert (want > 1).any() and (want == 0).any()
@@ -157,7 +157,7 @@ def test_profile_joins_match_jax(k):
     ji = jcount.unique_batch_inst(jnp.asarray(q), k, SIZE)
     want_i = np.asarray(jcount.profile_join_inst(*jt, ji["s_words"],
                                                  ji["s_pos"]))
-    ti = tcount.unique_batch_inst(codes_from_numpy(q, "cpu"), k, SIZE)
+    ti = tcount.unique_batch_inst(device_codes(q, "cpu"), k, SIZE)
     got_i = tcount.profile_join_inst(*tt, ti["s_words"], ti["s_pos"])
     assert np.array_equal(_u16(got_i), want_i)
     assert np.array_equal(want_i, want)
@@ -194,15 +194,15 @@ def test_join_table_entry_leads_its_segment(k):
     c = np.full(size + pad_needed(k), 4, np.uint8)
     c[: size - 100] = rng.integers(0, 4, size - 100)
     c[1000:9000] = 0  # A^k at 8000 - k + 1 positions
-    words, invalid = canonical_kmers(codes_from_numpy(c, "cpu"), k, size)
+    words, invalid = canonical_kmers(device_codes(c, "cpu"), k, size)
     key = tuple(w[1000: 1001] for w in words)
     table = (key, torch.tensor([7], dtype=torch.int32))
     want = np.zeros(size, np.uint16)
     want[1000: 9000 - k + 1] = 7
     assert not invalid[: size - 100 - k + 1].any()
-    got = tcount.profile_join(*table, codes_from_numpy(c, "cpu"), k, size)
+    got = tcount.profile_join(*table, device_codes(c, "cpu"), k, size)
     assert np.array_equal(_u16(got), want)
-    inst = tcount.unique_batch_inst(codes_from_numpy(c, "cpu"), k, size)
+    inst = tcount.unique_batch_inst(device_codes(c, "cpu"), k, size)
     got = tcount.profile_join_inst(*table, inst["s_words"], inst["s_pos"])
     assert np.array_equal(_u16(got), want)
     jt = (tuple(jnp.asarray(np.asarray(w).astype(np.uint32)) for w in key),

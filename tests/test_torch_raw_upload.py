@@ -21,6 +21,7 @@ from fastk_tpu.formats.ktab import write_ktab
 from fastk_tpu.io.reader import batched_reads
 from fastk_tpu.tools.fastk import main as jax_fastk_main
 from fastk_tpu_torch import trace
+from fastk_tpu_torch.convert import device_codes
 from fastk_tpu_torch.formats.ktab import read_ktab
 from fastk_tpu_torch.io.reader import batched_reads as port_batched_reads
 from fastk_tpu_torch.ops import pack as tpack
@@ -262,7 +263,7 @@ def test_device_codes_equal_the_packed_round_trip():
     dev = torch.device("cpu")
     pw, exc = tpack.pack_stream_words(codes)
     want = tpack.upload_packed(pw, exc, len(codes), dev)
-    got = tpack.device_codes(codes, dev)
+    got = device_codes(codes, dev)
     assert got.dtype == want.dtype == torch.uint8
     assert torch.equal(got, want)
     codes[0] = 3  # a new tensor, not a view of the host array

@@ -303,3 +303,37 @@ def test_spans_outside_a_job_are_not_recorded():
         tpipe.count_files([os.path.join(INPUTS, "tiny.fasta")], 12,
                           device="cpu")
     assert len(trace.jobs()) == before
+
+
+def _kbench_targets():
+    """(span, target) of every call the benchmark wraps: its gap spans and
+    each per-layer metric's SPANS."""
+    from kbench import spec
+    from kbench.spans import GAP_NAMES
+
+    out = dict(GAP_NAMES)
+    for f in sorted(os.listdir(os.path.join(REPO, "kbench", "metrics"))):
+        if f.endswith(".py"):
+            for name, tgt in spec.metric_reader(f[:-3]).SPANS.items():
+                out[name] = tgt if isinstance(tgt, str) else tgt[0]
+    return sorted(out.items())
+
+
+REPO = os.path.dirname(HERE)
+KBENCH_TARGETS = _kbench_targets()
+
+
+@pytest.mark.parametrize("span,target", KBENCH_TARGETS,
+                         ids=[s for s, _ in KBENCH_TARGETS])
+def test_kbench_targets_resolve(span, target):
+    """A target that no longer resolves would drop its per-layer metric
+    without an error: every one names a callable of the port."""
+    from kbench.spans import _resolve
+
+    assert _resolve(target) is not None, (span, target)
+
+
+def test_kbench_harness_patch_targets():
+    """The names kbench's harness tests patch to fault a job."""
+    assert callable(tpipe._histogram) and callable(tpipe._table_entries)
+    assert callable(tpipe._ProfSink.add_batch)
