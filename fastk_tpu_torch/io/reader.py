@@ -12,7 +12,9 @@ case-sensitively, exactly like the reference's ADD macro (io.c:557-570).
 from __future__ import annotations
 
 import gzip
+import mmap
 import os
+import re
 from dataclasses import dataclass
 from typing import Iterator, List, Tuple
 
@@ -131,11 +133,14 @@ class ReadBatch:
            very start; the tail is padded with SENTINEL up to ``size``.
     boff:  int64 [nreads+1]; read r occupies codes[boff[r] : boff[r]+rlen[r]].
     rlen:  int64 [nreads] raw (possibly compressed) read lengths.
+    more:  True where the reader knows that reads follow: it cut the batch
+           before a read that did not fit. False where it cannot tell.
     """
 
     codes: np.ndarray
     boff: np.ndarray
     rlen: np.ndarray
+    more: bool = False
 
     @property
     def nreads(self) -> int:
@@ -177,28 +182,23 @@ def read_file(path: str, hc: bool = False) -> ReadBatch:
 
 
 INGEST_CHUNK = 32 << 20  # raw bytes per streamed read() chunk
+NL_BLOCK = 1 << 18  # bytes a FASTQ newline count compares at once
+_TEXT = re.compile(rb"\S")  # a byte that bytes.strip() keeps
 
 
-def _stream_raw(path: str, chunk: int = INGEST_CHUNK) -> Iterator[bytes]:
-    """Stream a (possibly gzip'd) file in bounded chunks — nothing is ever
-    whole-file resident (the reference byte-range-partitions inputs for the
-    same reason, io.c:2280-2600).
-
-    Traced: each read (file read plus inflate) is the span reader.raw; the
-    counters reader.text_bytes (bytes after inflate) and reader.file_bytes
-    (bytes read from disk, compressed for a .gz) add up what was read."""
-    with _open(path) as f:
-        try:
-            while True:
-                with trace.span("reader.raw"):
-                    b = f.read(chunk)
-                if not b:
-                    return
-                trace.count("reader.text_bytes", len(b))
-                yield b
-        finally:
-            if trace.active():
-                trace.count("reader.file_bytes", _disk_bytes(f, path))
+def _read_into(f, view) -> int:
+    """Fill `view` from `f` as one f.read(len(view)) would, short only at
+    the end of the input. Traced: the span reader.raw (file read plus
+    inflate) and the counter reader.text_bytes (bytes after inflate)."""
+    n = 0
+    with trace.span("reader.raw"):
+        while n < len(view):
+            got = f.readinto(view[n:])
+            if not got:
+                break
+            n += got
+    trace.count("reader.text_bytes", n)
+    return n
 
 
 def _disk_bytes(f, path: str) -> int:
@@ -212,41 +212,101 @@ def _disk_bytes(f, path: str) -> int:
         return os.path.getsize(path)
 
 
-def _record_chunks(path: str, fmt: str,
-                   chunk: int = INGEST_CHUNK) -> Iterator[bytes]:
-    """Yield buffers that each contain only WHOLE records: the record-
-    boundary snap of the reference's input partitioner (io.c:409-498),
-    applied at chunk seams instead of thread ranges.
+def _count_newlines(view) -> int:
+    """Newlines in `view`, compared a cache-sized block at a time."""
+    a = np.frombuffer(view, dtype=np.uint8)
+    return sum(int(np.count_nonzero(a[i: i + NL_BLOCK] == 0x0A))
+               for i in range(0, len(a), NL_BLOCK))
 
-    FASTA: cut before the last header start ('\\n>' — a '>' can only start
-    a line in a header). FASTQ: cut after every 4th newline (carry always
-    begins at a record boundary, so newline count mod 4 is cut-invariant;
-    '@' may appear inside quality lines, so newlines are the only safe
-    anchor)."""
-    carry = b""
-    for raw in _stream_raw(path, chunk):
-        with trace.span("reader.snap"):
-            buf = carry + raw if carry else raw
-            if fmt == "fasta":
-                cut = buf.rfind(b"\n>")
-                if cut >= 0:
-                    cut += 1  # keep the newline with the emitted records
-            else:  # fastq
-                arr = np.frombuffer(buf, dtype=np.uint8)
-                nls = np.flatnonzero(arr == 0x0A)
-                cut = -1
-                if len(nls) >= 4:
-                    last4 = (len(nls) // 4) * 4 - 1  # the last 4k-th newline
-                    cut = int(nls[last4]) + 1
-            if cut < 0:
-                carry = buf
-                continue
-            out, carry = buf[:cut], buf[cut:]
-        yield out
+
+def _fastq_cut(buf, filled: int, nl: int) -> int:
+    """The end of the last whole FASTQ record in buf[:filled], which holds
+    nl newlines and starts at a record: just past its last newline whose
+    ordinal is a multiple of four (-1 if it has fewer than four)."""
+    if nl < 4:
+        return -1
+    pos = filled
+    for _ in range(nl % 4 + 1):
+        pos = buf.rfind(b"\n", 0, pos)
+    return pos + 1
+
+
+def _buffer(size: int) -> mmap.mmap:
+    """A buffer of `size` bytes whose pages the OS maps in as they are
+    first written: private anonymous memory, in huge pages where the OS
+    gives them on request (fewer faults than a malloc'd bytes object)."""
+    buf = mmap.mmap(-1, size, flags=mmap.MAP_PRIVATE)
+    buf.madvise(mmap.MADV_HUGEPAGE)
+    return buf
+
+
+def _carried(buf, start: int, n: int, size: int) -> mmap.mmap:
+    """A new buffer of `size` bytes that starts with buf[start: start + n]."""
+    new = _buffer(size)
+    memoryview(new)[:n] = memoryview(buf)[start: start + n]
+    return new
+
+
+def _record_chunks(path: str, fmt: str,
+                   chunk: int = INGEST_CHUNK) -> Iterator[memoryview]:
+    """Yield views that each contain only WHOLE records: the record-
+    boundary snap of the reference's input partitioner (io.c:409-498),
+    applied at chunk seams instead of thread ranges. The file is streamed
+    in chunks of `chunk` bytes (gzip'd or not), so nothing is ever
+    whole-file resident (the reference byte-range-partitions inputs for
+    the same reason, io.c:2280-2600).
+
+    Each chunk is read (readinto) into a buffer of its own after the carry,
+    the partial record the previous chunk left: the snap copies only the
+    carry, into the next buffer. A view is never written again, and its
+    buffer is freed with it. A record longer than a buffer grows it.
+
+    FASTA: cut before the last header start ('\\n>' -- a '>' can only start
+    a line in a header). FASTQ: cut after the last 4k-th newline (the carry
+    always begins at a record boundary, so the newline count mod 4 is
+    cut-invariant; '@' may appear inside quality lines, so newlines are the
+    only safe anchor).
+
+    Traced: the spans reader.raw (each read) and reader.snap (the cut and
+    the carry's copy); the counters reader.text_bytes and reader.file_bytes
+    (bytes read from disk, compressed for a .gz)."""
+    fastq = fmt == "fastq"
+    buf = _buffer(chunk)
+    carry = carry_nl = nl = 0  # the carry's bytes, and newlines (FASTQ)
+    with _open(path) as f:
+        try:
+            while True:
+                got = _read_into(f, memoryview(buf)[carry: carry + chunk])
+                if not got:
+                    break
+                filled = carry + got
+                with trace.span("reader.snap"):
+                    if fastq:
+                        nl = carry_nl + _count_newlines(
+                            memoryview(buf)[carry: filled])
+                        cut = _fastq_cut(buf, filled, nl)
+                    else:
+                        cut = buf.rfind(b"\n>", 0, filled)
+                        if cut >= 0:
+                            cut += 1  # keep the newline with the records
+                    if cut < 0:  # no whole record yet: read on after it
+                        carry, carry_nl = filled, nl
+                        if len(buf) < carry + chunk:
+                            buf = _carried(buf, 0, carry,
+                                           max(2 * len(buf), carry + chunk))
+                        continue
+                    out = memoryview(buf)[:cut]
+                    carry, carry_nl = filled - cut, nl % 4
+                    buf = _carried(buf, cut, carry, carry + chunk)
+                yield out
+        finally:
+            if trace.active():
+                trace.count("reader.file_bytes", _disk_bytes(f, path))
     with trace.span("reader.snap"):
-        last = carry if carry and carry.strip() else None
-    if last:
-        yield last
+        last = memoryview(buf)[:carry]
+        if _TEXT.search(last) is None:
+            return
+    yield last
 
 
 def _ingest_threads() -> int:
@@ -262,11 +322,12 @@ def _ingest_threads() -> int:
 
 def _pooled(chunks, parse_one):
     """Parse an iterator of record chunks with a bounded worker pool,
-    yielding results in file order; at most (workers + 1) raw chunks are
-    in flight, so host memory stays O(workers * chunk) regardless of file
-    size. Native parsers release the GIL (ctypes), so workers run truly
-    in parallel — the reference's ITHREADS input data-parallelism
-    (io.c:2280-2600) with the boundary snap done once at chunk seams.
+    yielding results in file order, each as soon as it and those before it
+    are parsed; at most (workers + 1) raw chunks are in flight, so host
+    memory stays O(workers * chunk) regardless of file size. Native parsers
+    release the GIL (ctypes), so workers run truly in parallel — the
+    reference's ITHREADS input data-parallelism (io.c:2280-2600) with the
+    boundary snap done once at chunk seams.
 
     Traced: the main thread's time on the pool, the hand-off of each chunk
     (which starts a worker the first times) and the wait until a parsed
@@ -292,7 +353,7 @@ def _pooled(chunks, parse_one):
                 with trace.span("reader.wait"):
                     pending.append(pool.submit(parse_one, buf))
                 del buf
-                while len(pending) > nw:
+                while pending and (len(pending) > nw or pending[0].done()):
                     with trace.span("reader.wait"):
                         piece = pending.popleft().result()
                     yield piece
@@ -399,6 +460,7 @@ class _PieceAccum:
                 hi = min(hi, nreads)
                 self._push(codes, boff, rlen, lo, hi)
                 batch = self.flush()
+                batch.more = hi < nreads
             yield batch
             lo = hi
 
@@ -435,8 +497,8 @@ def batched_reads(
     (long-read splitting with a k-1 halo is handled at the device chunking
     layer, not here). FASTA/FASTQ parse through the native scanner over
     bounded streamed chunks — host memory stays O(batch) regardless of file
-    size, gzip'd or not. Traced: the counter reader.bases adds each
-    batch's bases.
+    size, gzip'd or not. A batch's ``more`` says where more reads are known
+    to follow it. Traced: the counter reader.bases adds each batch's bases.
     """
     batches = _batched_reads(paths, batch_bases, hc, bc)
     try:

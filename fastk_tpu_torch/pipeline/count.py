@@ -292,23 +292,27 @@ def count_files(
     out_base: stream the .ktab and .prof file-sets to disk (out_nparts parts
     each) instead of returning them (table and profiles come back None,
     table_entries set). The histogram is always returned, never written.
-    Traced: the counter count.slices_ahead, the device slices queued while
-    the reader still had input to read."""
+    Traced: the span count.first_batch, the reads before the first slice
+    can be queued (the first batch, and the second where the first does not
+    tell whether it is the whole input); the counter count.slices_ahead,
+    the device slices queued while the reader still had input to read."""
     dev = resolve_device(device)
     if not profiles and relative_table is None:
         # nothing is kept a batch: a batch is one device slice
         batch_bases = min(batch_bases, MAX_DEVICE_POSITIONS - pad_needed(k))
     gen = batched_reads(list(paths), batch_bases, hc=hc, bc=bc)
-    first_two = [batch for batch, _ordinal in itertools.islice(gen, 2)]
-    single = (len(first_two) == 1
-              and len(first_two[0].codes) + pad_needed(k)
-              <= MAX_DEVICE_POSITIONS)
+    with trace.span("count.first_batch"):
+        head = [batch for batch, _ordinal in itertools.islice(gen, 1)]
+        if head and not head[0].more:  # is it the whole input?
+            head += [batch for batch, _ordinal in itertools.islice(gen, 1)]
+    single = (len(head) == 1 and not head[0].more
+              and len(head[0].codes) + pad_needed(k) <= MAX_DEVICE_POSITIONS)
     if single and profiles and relative_table is None:
-        return _count_single_fused(first_two[0], k, table_min, verbose,
+        return _count_single_fused(head[0], k, table_min, verbose,
                                    out_base, out_nparts, dev)
     if (single and not profiles and table_min is None
             and relative_table is None):
-        return _count_single_hist(first_two[0], k, verbose, dev)
+        return _count_single_hist(head[0], k, verbose, dev)
 
     metas = []  # per batch: (boff, rlen, number of codes)
     # per batch: its slices (off, size, packed words, exceptions, codes
@@ -333,9 +337,9 @@ def count_files(
         blocks_words.append(tuple(w[:keep].clone() for w in res["seg_words"]))
         blocks_counts.append(res["seg_counts"][:keep].clone())
 
-    batches = itertools.chain(first_two, (b for b, _ordinal in gen))
+    batches = itertools.chain(head, (b for b, _ordinal in gen))
     for i, batch in enumerate(batches):
-        if i >= len(first_two):  # read after the slices before it were queued
+        if i >= len(head):  # read after the slices before it were queued
             ahead = queued
         metas.append((np.asarray(batch.boff), np.asarray(batch.rlen),
                       len(batch.codes)))

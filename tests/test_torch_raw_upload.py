@@ -66,10 +66,11 @@ def _slice_batches(path, cap):
 
 
 def _ahead(nbatches):
-    """count.slices_ahead of a job of nbatches one-slice batches: the first
-    two are read before the first slice is queued, and each later read
-    follows every slice queued before it."""
-    return nbatches - 1 if nbatches >= 3 else 0
+    """count.slices_ahead of a job of nbatches one-slice batches, each but
+    the last cut before a read that did not fit: the first is read before
+    the first slice is queued, and each later read follows every slice
+    queued before it."""
+    return nbatches - 1
 
 
 def _traced(fn, *args, **kw):
@@ -185,8 +186,8 @@ def test_counting_jobs_read_a_slice_a_batch(tmp_path, reads_path,
 def test_profile_jobs_keep_their_batches(tmp_path, reads_path, monkeypatch,
                                          budget):
     """A -t2 -p job keeps per-batch state for its profile pass, so it reads
-    batches of batch_bases, each in several slices: two batches here, both
-    read before the first slice is queued."""
+    batches of batch_bases, each in several slices: two batches here, the
+    first one's slices queued before the second is read."""
     for mod in (jpipe, tpipe):
         monkeypatch.setattr(mod, "MAX_DEVICE_POSITIONS", CAP)
     if budget is None:
@@ -201,7 +202,52 @@ def test_profile_jobs_keep_their_batches(tmp_path, reads_path, monkeypatch,
     assert port_set == jax_set
     packed = 0 if budget is None else sum(slices)
     assert _uploads(rec) == (sum(slices), packed, packed)
-    assert rec["counters"]["count.slices_ahead"] == 0
+    assert rec["counters"]["count.slices_ahead"] == slices[0]
+
+
+def test_two_batch_job_queues_before_its_second_read(tmp_path, reads_path,
+                                                     monkeypatch):
+    """A -k job of two one-slice batches queues the first batch's slice
+    before the reader reads the second: the first batch was cut before a
+    read that did not fit, so it cannot be the whole input."""
+    for mod in (jpipe, tpipe):
+        monkeypatch.setattr(mod, "MAX_DEVICE_POSITIONS", 4 * CAP)
+    assert _slice_batches(reads_path, 4 * CAP) == 2
+    jax_set, port_set, rec = _both(tmp_path, reads_path, 64 << 20)
+    assert port_set == jax_set
+    main = [e for e in rec["events"] if e[3] == rec_thread(rec)]
+    (first,) = [e for e in main if e[0] == "count.first_batch"]
+    uploads = sorted(e[1] for e in main if e[0] == "upload")
+    reads = [e for e in main if e[0] == "reader.batch"]
+    assert len(uploads) == 2
+    assert first[2] <= uploads[0]
+    # the second batch is cut after the first slice went up
+    assert max(e[2] for e in reads) > uploads[0]
+    assert rec["counters"]["count.slices_ahead"] == 1
+
+
+def test_single_batch_job_launches_k1_once(tmp_path, reads_path,
+                                           monkeypatch):
+    """A -k job of one batch still takes the single-batch path: one upload
+    and one run-length histogram (K1) call, after both reads."""
+    from fastk_tpu_torch.ops import histker
+
+    calls = []
+    orig = histker.run_hist
+    monkeypatch.setattr(histker, "run_hist",
+                        lambda *a: calls.append(1) or orig(*a))
+    jax_set, port_set, rec = _both(tmp_path, reads_path, 64 << 20)
+    assert port_set == jax_set
+    assert len(calls) == 1
+    assert _uploads(rec) == (1, 0, 0)
+    assert "dedup" not in rec["spans"]  # no unique_batch, no merge of blocks
+    assert rec["spans"]["count.first_batch"]["calls"] == 1
+
+
+def rec_thread(rec):
+    """The job's own thread in its record."""
+    (job,) = [e for e in rec["events"] if e[0] == "job"]
+    return job[3]
 
 
 def test_relative_profiles_upload_packed(tmp_path, reads_path, monkeypatch):

@@ -32,14 +32,14 @@ INGEST = {"reader.raw", "reader.snap", "reader.wait", "reader.parse",
 SPANS = {
     # the small inputs' instance streams fit the budget: nothing is packed
     "t4p": INGEST | {
-        "job", "plan", "dedup", "merge", "table_out", "ktab_write",
-        "hist_write", "join", "prof_out.encode", "prof_out.write",
+        "job", "plan", "count.first_batch", "dedup", "merge", "table_out",
+        "ktab_write", "hist_write", "join", "prof_out.encode", "prof_out.write",
         "wait.later", "wait.fetch_u16", "wait.bincount",
         "wait.hist_bins", "wait.merge_nuniq", "wait.table_nkeep",
         "wait.table_words", "wait.plan_nvalid", "wait.plan_nuniq"},
     # every slice is packed, kept and uploaded once, for the join
     "relative": INGEST | {
-        "job", "plan", "pack", "relative_table.read",
+        "job", "plan", "count.first_batch", "pack", "relative_table.read",
         "relative_table.upload", "join", "prof_out.encode",
         "prof_out.write", "wait.fetch_u16", "wait.unpack",
         "wait.table_upload"},
@@ -166,10 +166,17 @@ def test_t4p_job_record(tmp_path, multi_batch):
     assert c["dedup.positions"] == hist.total_instances()
     assert 0 < c["dedup.uniques"] <= c["dedup.positions"]
     assert rec["spans"]["plan"]["calls"] == 2
+    # the card waits for the first batch alone: the reader cut it before a
+    # read that did not fit
+    assert rec["spans"]["count.first_batch"]["calls"] == 1
+    first = [e for e in rec["events"] if e[0] == "count.first_batch"]
+    batches = [e for e in rec["events"] if e[0] == "reader.batch"
+               and e[4] == "count.first_batch"]
+    assert len(first) == 1 and len(batches) == 1
     assert rec["spans"]["dedup"]["calls"] == len(list(
         treader.batched_reads([SMALL], BATCH))) + 1
-    # the slices queued before the last batch was read, the first two
-    # batches being read before any
+    # the slices queued before the last batch was read, the first batch
+    # (cut before a read that did not fit) being read before any
     per_batch = [len(list(tpipe._code_slices(b.codes, k)))
                  for b, _ in treader.batched_reads([SMALL], BATCH)]
     assert len(per_batch) >= 3
