@@ -8,7 +8,9 @@ and which inputs it reads). The harness makes the inputs from the seed
 (``gen``), times whole ``fastk`` jobs through the port's CLI entry in a closed
 loop, and judges the last job's output files against a plain reference
 (``reference``). Per-layer metrics are small readers under ``metrics/``,
-found by their names in ``BENCHMARK.json``.
+found by their names in ``BENCHMARK.json``. A cell of more than one chip runs
+the port's multi-process CLI, one process a card, whose other ranks
+``ranks`` starts and keeps for the window.
 
 Nothing here imports JAX or the JAX package ``fastk_tpu``.
 """

@@ -1,5 +1,6 @@
 """The one general generator: a random genome from the seed, reads sampled
-from it, and the job's inputs written as FASTA or gzipped FASTQ.
+from it, and the job's inputs written as FASTA or gzipped FASTQ, in one file
+or in several.
 
 The sampling is ``fastk_tpu_torch.bench.synth_hifi``'s method, copied and
 not imported: read starts uniform over the genome, point substitutions at a
@@ -10,6 +11,7 @@ the same length; only their content differs.
 
 from __future__ import annotations
 
+import os
 import zlib
 from concurrent.futures import ThreadPoolExecutor
 
@@ -114,14 +116,43 @@ def write_gz(path: str, text: np.ndarray, level: int,
             f.write(blob)
 
 
-def write_reads(path: str, codes: np.ndarray, seed: int,
-                sample: dict) -> None:
-    """The reads in the sample's format: "fasta" or "fastq.gz"."""
+def read_text(codes: np.ndarray, seed: int, sample: dict) -> np.ndarray:
+    """uint8 text of the reads in the sample's format: "fasta" or
+    "fastq.gz" (the text before compression). Every record has the same
+    length."""
     fmt = sample["format"]
     if fmt == "fasta":
-        fasta_text(codes, b"read").tofile(path)
-    elif fmt == "fastq.gz":
-        write_gz(path, fastq_text(codes, b"read", seed, sample),
-                 int(sample["gzip_level"]))
+        return fasta_text(codes, b"read")
+    if fmt == "fastq.gz":
+        return fastq_text(codes, b"read", seed, sample)
+    raise ValueError(f"unknown read format {fmt!r}")
+
+
+def _write_text(path: str, text: np.ndarray, sample: dict) -> None:
+    if sample["format"].endswith(".gz"):
+        write_gz(path, text, int(sample["gzip_level"]))
     else:
-        raise ValueError(f"unknown read format {fmt!r}")
+        text.tofile(path)
+
+
+def write_reads(path: str, codes: np.ndarray, seed: int,
+                sample: dict) -> None:
+    """The reads in the sample's format, as one file."""
+    _write_text(path, read_text(codes, seed, sample), sample)
+
+
+def write_read_files(work: str, codes: np.ndarray, seed: int,
+                     sample: dict) -> list:
+    """The reads as sample["files"] files (1 when absent) in `work`, in
+    contiguous blocks of reads, the way a sample comes as several SMRT cells
+    or lanes; returns their paths in read order. One file is reads.<format>;
+    several are reads.<i>.<format>, whose records are those of the one file,
+    split: the same names, bases and qualities."""
+    fmt, nfiles = sample["format"], int(sample.get("files", 1))
+    records = read_text(codes, seed, sample).reshape(len(codes), -1)
+    paths = []
+    for i, block in enumerate(np.array_split(records, nfiles)):
+        name = f"reads.{fmt}" if nfiles == 1 else f"reads.{i}.{fmt}"
+        paths.append(os.path.join(work, name))
+        _write_text(paths[-1], block.reshape(-1), sample)
+    return paths

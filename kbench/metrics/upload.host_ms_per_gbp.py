@@ -1,6 +1,7 @@
 """upload.host_ms_per_gbp: host milliseconds of the uploads (the port's span
-upload in ops/pack.py's upload_int32: the pin by copy and the non-blocking
-host-to-device copy) for a gigabase of input."""
+upload in convert.py: device_codes, a slice's codes in a pageable
+non-blocking host-to-device copy, and upload_int32, a pin by copy and a
+non-blocking copy) for a gigabase of input."""
 
 from kbench.jobtrace import per_gbp, span_s, window_jobs
 

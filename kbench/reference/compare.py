@@ -50,16 +50,21 @@ def expected(traffic: dict, k: int, inputs: dict, device) -> dict:
     return out
 
 
-def reads_table(path: str, k: int, tmin: int, device):
-    """The -t<tmin> table of the reads in `path`: (words, counts)."""
-    codes, rlen = load_reads(path, device)
+def reads_table(paths, k: int, tmin: int, device):
+    """The -t<tmin> table of the reads in the files `paths`: (words,
+    counts)."""
+    codes, rlen = load_reads(paths, device)
     uniq, counts, _ = ref.count(ref.canonical_words(codes, rlen, k))
     return ref.table(uniq, counts, tmin)
 
 
-def load_reads(path: str, device):
-    """(codes, read lengths) of a generated input, as tensors on `device`."""
-    codes, rlen = read_sequences(path)
+def load_reads(paths, device):
+    """(codes, read lengths) of a generated input, its files read as one
+    sample in their order, as tensors on `device`."""
+    parts = [read_sequences(p) for p in paths]
+    codes = np.concatenate([c for c, _ in parts])
+    rlen = np.concatenate([r for _, r in parts])
+    del parts
     return (torch.from_numpy(codes).to(device),
             torch.from_numpy(rlen).to(device))
 

@@ -20,9 +20,22 @@ After the window: the peaks are read, the port's state is freed, and the
 plain reference counts the same inputs; each number compared is printed
 beside its limit, on standard error and last in the result.
 
+A cell with ``chips`` above 1 runs the port's multi-process CLI, one process
+a card (``kbench/ranks.py``): this process is rank 0 and keeps the window,
+its timing and the reference; the other ranks start in set-up, join one
+world with it before the warm-up job and stay for the window, and each job
+runs on every rank. Its ``device_peak_gb`` is the largest peak of any one
+rank (what ``-M`` promises, and what a user sizes each card by), and its
+``host_peak_gb`` the sum of the ranks' ``ru_maxrss``: the node's, an upper
+bound, since the ranks' peaks need not fall at the same moment. With
+``--trace 1`` only rank 0 is profiled: its timeline and its job records, so
+a per-Gbp metric there is per Gbp of a rank's share, the job's bases over
+its ranks (rank 0's own where the files split evenly among the ranks).
+
 Without a CUDA card (or with fewer than the cell asks for), without the port,
-or with JAX or the JAX package loaded when the window has closed, the run
-prints no result and exits non-zero.
+with JAX or the JAX package loaded on any rank when the window has closed,
+or when a rank dies or a wait for one passes its limit, the run prints no
+result and exits non-zero.
 """
 
 import time
@@ -61,13 +74,14 @@ class Context:
         self.jobs, self.bases = jobs, bases
 
 
-def make_inputs(workload, seed, work, device, sample):
+def make_inputs(cell, seed, work, device):
     """Run the generator in a child process; returns its inputs.json."""
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
-    cmd = [sys.executable, "-m", "kbench.gen", "--workload", workload,
-           "--seed", str(seed), "--dir", work, "--device", device,
-           "--sample", json.dumps(sample or {})]
+    cmd = [sys.executable, "-m", "kbench.gen", "--cell",
+           json.dumps({"name": cell.name, "chips": cell.chips,
+                       "config": cell.config, "traffic": cell.traffic}),
+           "--seed", str(seed), "--dir", work, "--device", device]
     from kbench.spec import ROOT
 
     r = subprocess.run(cmd, cwd=ROOT, timeout=GEN_TIMEOUT_S)
@@ -84,8 +98,7 @@ def run(workload, seed, seconds, trace, device="cuda", sample=None,
     device="cpu" runs the port and the reference on the CPU (the tests);
     sample overrides keys of the configuration's sample."""
     t0 = T0 if t0 is None else t0
-    from kbench import spec
-    from kbench.roofline import HBM_BYTES_PER_S, power_limit
+    from kbench import ranks, spec
 
     cell = spec.load(workload, sample)
     import torch
@@ -101,9 +114,31 @@ def run(workload, seed, seconds, trace, device="cuda", sample=None,
     except ImportError as e:
         raise NotRun(f"the port does not import: {e}") from e
     parts = {"import_s": time.perf_counter() - t0}
-    work = spec.workdir(workload)
+    # the other ranks start their imports while the inputs are made
+    world = (ranks.World(cell.chips, device, spec.ROOT) if cell.chips > 1
+             else None)
+    try:
+        return _measured(cell, seed, seconds, trace, device, t0, parts,
+                         world)
+    except ranks.Lost as e:
+        raise NotRun(f"the world of {cell.chips} ranks was lost: {e}") from e
+    finally:
+        if world is not None:
+            world.kill()
+
+
+def _measured(cell, seed, seconds, trace, device, t0, parts, world):
+    """run() from the inputs on; with world, rank 0 of it."""
+    import torch
+
+    from fastk_tpu_torch.ops import histker
+    from fastk_tpu_torch.tools import fastk as cli
+    from kbench import ranks, spec
+    from kbench.roofline import HBM_BYTES_PER_S, power_limit
+
+    work = spec.workdir(cell.name)
     t = time.perf_counter()
-    inputs = make_inputs(workload, seed, work, device, sample)
+    inputs = make_inputs(cell, seed, work, device)
     parts["inputs_s"] = time.perf_counter() - t
     t = time.perf_counter()
     if device == "cuda":
@@ -111,9 +146,20 @@ def run(workload, seed, seconds, trace, device="cuda", sample=None,
         torch.zeros(1, device=device)
         torch.cuda.synchronize()
     parts["cuda_s"] = time.perf_counter() - t
+    if world is not None:
+        t = time.perf_counter()
+        world.join()
+        parts["ranks_s"] = time.perf_counter() - t
 
     out_base = os.path.join(work, "out")
     argv = spec.job_argv(cell, inputs, out_base, work)
+
+    def one_job(limit):
+        """The job on every rank: each rank's seconds with a world."""
+        if world is None:
+            return job(cli, argv, device)
+        return world.job(argv, lambda: job(cli, argv, device), limit)
+
     spans = metrics = None
     if trace:
         from torch.profiler import ProfilerActivity, profile, record_function
@@ -137,15 +183,17 @@ def run(workload, seed, seconds, trace, device="cuda", sample=None,
     t = time.perf_counter()
     if trace:  # the profiler's first start is slow: pay it in set-up
         with profile(activities=acts):
-            job(cli, argv, device)
+            one_job(ranks.WARMUP_S)
     else:
-        job(cli, argv, device)
+        one_job(ranks.WARMUP_S)
     parts["warmup_job_s"] = time.perf_counter() - t
     setup_s = time.perf_counter() - t0
 
     if device == "cuda":
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+    if world is not None:
+        world.reset_peaks()
     launches0 = histker.run_hist.launches
     hist_blobs = []
     attempted = failed = 0
@@ -157,7 +205,7 @@ def run(workload, seed, seconds, trace, device="cuda", sample=None,
         prof.start()
         window_span = record_function("kbench:window")
         window_span.__enter__()
-    job_s, job_cpu_s = [], []
+    job_s, job_cpu_s, rank_job_s = [], [], []
     w0 = time.perf_counter()
     while True:
         attempted += 1
@@ -165,15 +213,18 @@ def run(workload, seed, seconds, trace, device="cuda", sample=None,
         try:
             if trace:
                 with record_function("kbench:job"):
-                    job(cli, argv, device)
+                    rank_s = one_job(ranks.JOB_S)
             else:
-                job(cli, argv, device)
+                rank_s = one_job(ranks.JOB_S)
+        except ranks.Lost:
+            raise
         except Exception as e:  # a failed job ends the window
             print(f"kbench: job {attempted} failed: {e!r}", file=sys.stderr)
             failed += 1
             break
         job_s.append(time.perf_counter() - j0)
         job_cpu_s.append([b - a for a, b in zip(c0, _cpu_s())])
+        rank_job_s.append(rank_s)
         if "hist" in cell.traffic["outputs"]:
             with open(out_base + ".hist", "rb") as f:
                 hist_blobs.append(f.read())
@@ -186,12 +237,24 @@ def run(workload, seed, seconds, trace, device="cuda", sample=None,
         spans.uninstall()
     host_peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
     dev_peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
+    if world is not None:
+        # the fullest card, and the node: every rank's own high-water mark
+        # summed, an upper bound, since the ranks' peaks need not coincide
+        others = world.close()
+        for r, (_, _, found) in enumerate(others, 1):
+            if found:
+                raise NotRun(f"rank {r} loaded {', '.join(found)}")
+        rank_peaks = [[dev_peak, host_peak]] + [[p, rss]
+                                                for p, rss, _ in others]
+        dev_peak = max(p for p, _ in rank_peaks)
+        host_peak = sum(rss for _, rss in rank_peaks)
     launches = histker.run_hist.launches - launches0
     jobs = attempted - failed
     bases = jobs * inputs["bases"]
 
     result = {"correct": False, "attempted": attempted, "failed": failed,
-              "metrics": {}, "device": device_field(torch, device, dev_peak)}
+              "metrics": {},
+              "device": device_field(torch, device, dev_peak, cell.chips)}
     if trace:
         from kbench.spans import reduce_trace
 
@@ -200,8 +263,9 @@ def run(workload, seed, seconds, trace, device="cuda", sample=None,
         del prof
         red = reduce_trace(path, spans.stats)
         os.unlink(path)
+        # the records are rank 0's: per Gbp of a rank's share of the bases
         ctx = Context(spans.stats, red["window_s"], red["busy_s"], jobs,
-                      bases)
+                      bases / cell.chips)
         units = {m["name"]: m["unit"] for m in cell.per_layer}
         for name, mod in metrics.items():
             value = mod.read(ctx)
@@ -223,6 +287,9 @@ def run(workload, seed, seconds, trace, device="cuda", sample=None,
     result["window_s"] = window_s
     result["job_s"] = job_s
     result["job_cpu_s"] = job_cpu_s
+    if world is not None:
+        result["rank_job_s"] = rank_job_s  # rank 0's first
+        result["rank_peaks"] = rank_peaks  # bytes: [device, ru_maxrss]
     result["setup_parts"] = parts
     result["run_hist_launches"] = launches
     result["hbm_peak_bytes_per_s"] = HBM_BYTES_PER_S
@@ -255,6 +322,8 @@ def _cpu_s():
 
 
 def job(cli, argv, device) -> None:
+    """One fastk job of this process (one rank's share of it in a world),
+    waited for on the card."""
     rc = cli.main(list(argv), device=device)
     if rc != 0:
         raise RuntimeError(f"fastk returned {rc}")
@@ -264,12 +333,12 @@ def job(cli, argv, device) -> None:
         torch.cuda.synchronize()
 
 
-def device_field(torch, device, peak) -> dict:
+def device_field(torch, device, peak, chips) -> dict:
     if device != "cuda":
         return {"platform": "cpu", "kind": "cpu", "count": 0,
                 "memory_peak_bytes": peak}
     return {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
-            "count": 1, "memory_peak_bytes": peak}
+            "count": chips, "memory_peak_bytes": peak}
 
 
 def main(argv=None) -> int:

@@ -2,7 +2,8 @@
 build its job.
 
 A cell names a configuration, ``configs/<config>.json`` (the sample the
-reads come from, k and the job's memory), and a traffic mix,
+reads come from and the files it is written as, k and the job's memory), and
+a traffic mix,
 ``traffic/<traffic>.json`` (the job's flags, the input it counts, and the
 outputs it writes). A per-layer metric is ``metrics/<name>.py``.
 """
@@ -76,8 +77,9 @@ def workdir(workload: str) -> str:
 
 def make_inputs(cell: Cell, seed: int, work: str, device) -> dict:
     """Write the cell's inputs for `seed` into `work`. Returns their paths
-    by name ("reads", "assembly", "reads_table") and "bases", the bases of
-    the input one job counts."""
+    by name ("reads" and "assembly": lists of files, counted as one sample;
+    "reads_table": a path) and "bases", the bases of the input one job
+    counts."""
     os.makedirs(work, exist_ok=True)
     sample, traffic = cell.config["sample"], cell.traffic
     k = cell.config["k"]
@@ -86,14 +88,13 @@ def make_inputs(cell: Cell, seed: int, work: str, device) -> dict:
     inputs, bases = {}, {}
     if traffic["query"] == "reads" or relative:
         codes = gen.reads(seed, g, sample)
-        path = os.path.join(work, "reads." + sample["format"])
-        gen.write_reads(path, codes, seed, sample)
-        inputs["reads"], bases["reads"] = path, int(codes.size)
+        inputs["reads"] = gen.write_read_files(work, codes, seed, sample)
+        bases["reads"] = int(codes.size)
         del codes
     if traffic["query"] == "assembly":
         path = os.path.join(work, "asm.fasta")
         gen.fasta_text(g[None, :], b"contig").tofile(path)
-        inputs["assembly"], bases["assembly"] = path, int(g.size)
+        inputs["assembly"], bases["assembly"] = [path], int(g.size)
     if relative:  # the reference's table, written by the frozen writer
         from kbench.reference import compare
         from kbench.reference.formats import words_to_packed, write_ktab
@@ -109,7 +110,7 @@ def make_inputs(cell: Cell, seed: int, work: str, device) -> dict:
 
 
 def job_argv(cell: Cell, inputs: dict, out_base: str, work: str) -> list:
-    """The fastk command line of one job."""
+    """The fastk command line of one job: every file of its input."""
     flags = [f.format(**inputs) for f in cell.traffic["flags"]]
     return [f"-k{cell.config['k']}", f"-M{cell.config['memory_gb']}", *flags,
-            f"-N{out_base}", f"-P{work}", inputs[cell.traffic["query"]]]
+            f"-N{out_base}", f"-P{work}", *inputs[cell.traffic["query"]]]

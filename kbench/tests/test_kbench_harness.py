@@ -260,10 +260,16 @@ def test_traced_run_reports_per_layer_metrics(tmpdir_env):
     result, _ = run.run(cell, 3, 0.2, True, device="cpu",
                         sample=TINY["hifi50x-k40"])
     assert result["correct"]
-    # no device work on the CPU: the host spans remain
+    # no device work on the CPU: the outside spans and the port's own job
+    # records remain; the card's idle share and the rooflines are left out
     assert set(result["metrics"]) == {"ingest.host_s_per_gbp",
                                       "prof_out.host_s_per_gbp",
-                                      "relative_table.host_ms_per_job"}
+                                      "relative_table.host_ms_per_job",
+                                      "reader.raw_s_per_gbp",
+                                      "reader.parse_wait_s_per_gbp",
+                                      "upload.host_ms_per_gbp",
+                                      "host_blocked_ms_per_job",
+                                      "prof_out.encode_s_per_gbp"}
     assert {"busy_s", "window_s"} <= set(result["device"])
     assert set(result["breakdown"]) == {"device_ops", "idle_gaps"}
 
